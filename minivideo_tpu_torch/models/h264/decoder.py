@@ -1,0 +1,338 @@
+"""H.264 intra decoder: Annex-B stream -> decoded pictures.
+
+Port of minivideo_tpu/models/h264/decoder.py for the fused engine:
+parameter sets and slice headers are parsed on the host, every IDR
+picture is entropy-parsed by the native parser into device-layout slab
+staging, and each group of pictures sharing an SPS/PPS is reconstructed
+in one batch by ops/recon_fused (the CUDA kernel on a GPU, its plain
+PyTorch version on the CPU).
+
+Reference: h264_decode (minivideo/src/decoder/h264/h264.c:41-206) — NALU
+loop dispatching on nal_unit_type {5 IDR, 6 SEI, 7 SPS, 8 PPS}, with its
+tolerance for per-NALU errors.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ... import trace
+from ...bitio import BitReader, BitstreamError
+from ...native import parse_slice_native_slab2
+from ...ops.recon import make_slab_staging2, pack_frames_slots2
+from ...ops.recon_fused import (make_reconstruct_fused_slots2,
+                                 staging_tensors)
+from .expgolomb import read_ue
+from .nalu import Nalu, NaluType, parse_nalu, split_annexb
+from .params import UnsupportedStream, parse_pps, parse_sei, parse_sps
+from .slicehdr import parse_slice_header
+from .syntax import FrameSyntax
+
+MAX_CONSECUTIVE_ERRORS = 64  # reference: h264.c:181-187
+
+
+def resolve_engine(engine: str) -> str:
+    """Map the user-facing engine name to a backend of the port.
+
+    "jax" (the JAX package's production alias) and "fused" both name the
+    fused wave engine, the only one ported so far."""
+    if engine in ("jax", "fused"):
+        return "fused"
+    raise ValueError(f"engine {engine!r} is not part of the port "
+                     f"(only 'fused')")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to decode on: CUDA unless the caller names another.
+
+    device=None asks for the GPU and raises when there is none; the CPU
+    (the plain PyTorch engine) runs only when asked for by name."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass "
+                               "device='cpu' to decode on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@dataclass
+class DecodedPicture:
+    """One decoded IDR picture: 4:2:0 planes + display crop."""
+    y: np.ndarray
+    cb: np.ndarray
+    cr: np.ndarray
+    width: int          # cropped display width
+    height: int
+    idr_index: int = 0
+    syntax: object = None    # FrameSyntax (kept for tests)
+
+    def cropped(self):
+        return (self.y[:self.height, :self.width],
+                self.cb[:self.height // 2, :self.width // 2],
+                self.cr[:self.height // 2, :self.width // 2])
+
+
+class H264Decoder:
+    """Stateful NALU-stream decoder (SPS/PPS context + IDR decoding)."""
+
+    def __init__(self, engine: str = "fused", device=None):
+        self.sps_map: dict = {}
+        self.pps_map: dict = {}
+        self.engine = resolve_engine(engine)
+        self.device = resolve_device(device)
+        self.idr_count = 0
+
+    # -- NALU feed -----------------------------------------------------------
+
+    def feed_nalu(self, nalu: Nalu):
+        """Process one NALU; returns a DecodedPicture for an IDR slice
+        (a one-slice picture), else None."""
+        t = nalu.nal_unit_type
+        if t == NaluType.SPS:
+            sps = parse_sps(nalu.rbsp)
+            self.sps_map[sps.seq_parameter_set_id] = sps
+            return None
+        if t == NaluType.PPS:
+            pps = parse_pps(nalu.rbsp, self.sps_map)
+            self.pps_map[pps.pic_parameter_set_id] = pps
+            return None
+        if t == NaluType.SEI:
+            parse_sei(nalu.rbsp)
+            return None
+        if t == NaluType.SLICE_IDR:
+            sh, sps, pps = parse_slice_header(
+                nalu.rbsp, nalu.nal_unit_type, nalu.nal_ref_idc,
+                self.sps_map, self.pps_map)
+            return self.reconstruct_batch(
+                *self.stage_groups([[nalu]], sps, pps))[0]
+        if t == NaluType.SLICE:
+            trace.t1("H264", "skipping non-IDR slice NALU")
+            return None
+        if t in (NaluType.PREFIX, NaluType.SLICE_SVC):
+            raise UnsupportedStream("SVC/MVC NALUs")
+        trace.t2("NALU", "ignoring NALU type %d", int(t))
+        return None
+
+    # -- picture decoding ----------------------------------------------------
+
+    def parse_groups_slab(self, groups, sps, pps, pool=None):
+        """Entropy-parse many pictures straight into device-layout slab
+        staging (native parser).  groups: list of NALU lists, all sharing
+        sps/pps.  `pool` (optional ThreadPoolExecutor) parses every
+        (picture, slice) task concurrently: slices are
+        entropy-independent and the native parse releases the GIL.
+        Returns (PackedFrames, [(FrameSyntax, slice_of_mb), ...])."""
+        wmb = sps.pic_width_in_mbs
+        hmb = sps.pic_height_in_map_units
+        staging = make_slab_staging2(wmb, hmb, len(groups))
+
+        def parse_one(i, fs, sh, nalu):
+            return parse_slice_native_slab2(
+                fs, staging, i, nalu.rbsp, sh.data_bit_offset,
+                sh.first_mb_in_slice, sh.qp,
+                bool(pps.entropy_coding_mode_flag),
+                bool(pps.transform_8x8_mode_flag),
+                cb_qp_off=pps.chroma_qp_index_offset,
+                cr_qp_off=pps.second_chroma_qp_index_offset)
+
+        frames = []
+        tasks = []                # (future, slice_of_mb, snum, first_mb)
+        for i, nalus in enumerate(groups):
+            fs = FrameSyntax(wmb, hmb, lite=True)
+            slice_of_mb = np.full(fs.n_mbs, -1, dtype=np.int32)
+            for snum, nalu in enumerate(nalus):
+                sh, _, _ = parse_slice_header(
+                    nalu.rbsp, nalu.nal_unit_type, nalu.nal_ref_idc,
+                    self.sps_map, self.pps_map)
+                if pool is not None:
+                    tasks.append((pool.submit(parse_one, i, fs, sh, nalu),
+                                  slice_of_mb, snum,
+                                  sh.first_mb_in_slice))
+                else:
+                    n = parse_one(i, fs, sh, nalu)
+                    slice_of_mb[sh.first_mb_in_slice:
+                                sh.first_mb_in_slice + n] = snum
+            frames.append((fs, slice_of_mb))
+        for fut, slice_of_mb, snum, first_mb in tasks:
+            n = fut.result()
+            slice_of_mb[first_mb:first_mb + n] = snum
+        return pack_frames_slots2(staging, sps, pps), frames
+
+    def stage_groups(self, groups, sps, pps, pool=None, timings=None):
+        """Parse pictures sharing sps/pps into slab staging and copy it to
+        the decoder's device.  Returns (parsed_groups, PackedFrames,
+        staging tensors), the arguments of reconstruct_batch.  `timings`
+        (optional dict) receives the host seconds of "parse" and "h2d"."""
+        t = time.perf_counter()
+        packed, frames = self.parse_groups_slab(groups, sps, pps, pool=pool)
+        t1 = time.perf_counter()
+        arrays = staging_tensors(packed, self.device)
+        if timings is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timings["parse"] = t1 - t
+            timings["h2d"] = time.perf_counter() - t1
+        parsed = [(fs, sps, pps, som) for fs, som in frames]
+        return parsed, packed, arrays
+
+    def reconstruct_batch(self, parsed_groups, packed, arrays):
+        """Reconstruct MANY parsed pictures in one engine batch on the
+        decoder's device.  parsed_groups: list of (fs, sps, pps,
+        slice_of_mb) sharing one SPS/PPS; packed: their slab staging;
+        arrays: its tensors on the device (stage_groups)."""
+        _, sps, _, _ = parsed_groups[0]
+        recon = make_reconstruct_fused_slots2(
+            packed.wmb, packed.hmb, packed.batch, packed.has8x8,
+            packed.haspcm)
+        yb, cbb, crb = (p.cpu().numpy()
+                        for p in recon(*arrays, packed.ls4, packed.ls8))
+        pics = []
+        for i, (fs, _, _, _) in enumerate(parsed_groups):
+            pics.append(DecodedPicture(
+                y=yb[i], cb=cbb[i], cr=crb[i],
+                width=sps.cropped_width, height=sps.cropped_height,
+                idr_index=self.idr_count, syntax=fs))
+            self.idr_count += 1
+        return pics
+
+
+def _partition(dec, group_iter, max_pictures, errors):
+    """Partition consecutive picture groups by their (SPS, PPS)
+    configuration, peeked from the first slice header of each group;
+    returns [(sps, pps, groups), ...] holding at most max_pictures
+    pictures (0: all)."""
+    parts = []
+    for group in group_iter:
+        try:
+            sh, sps, pps = parse_slice_header(
+                group[0].rbsp, group[0].nal_unit_type,
+                group[0].nal_ref_idc, dec.sps_map, dec.pps_map)
+        except (ValueError, BitstreamError) as e:
+            trace.warning("H264", "slice header error: %s", e)
+            errors += 1
+            if errors > MAX_CONSECUTIVE_ERRORS:
+                break
+            continue
+        if parts and parts[-1][0] is sps and parts[-1][1] is pps:
+            parts[-1][2].append(group)
+        else:
+            parts.append((sps, pps, [group]))
+        if max_pictures and sum(len(p[2]) for p in parts) >= max_pictures:
+            break
+    if max_pictures:
+        total = 0
+        for k, (sps, pps, groups) in enumerate(parts):
+            if total + len(groups) > max_pictures:
+                parts[k] = (sps, pps, groups[:max_pictures - total])
+                del parts[k + 1:]
+                break
+            total += len(groups)
+    return parts
+
+
+def _decode_batched(dec, group_iter, max_pictures, errors):
+    """The decode path: entropy-parse every selected picture first, then
+    reconstruct groups sharing an SPS/PPS configuration in ONE engine
+    batch."""
+    parts = _partition(dec, group_iter, max_pictures, errors)
+    pictures = []
+    pool = None
+    if (os.cpu_count() or 1) > 1:
+        pool = ThreadPoolExecutor(max_workers=os.cpu_count())
+    try:
+        _decode_batched_parts(dec, parts, pictures, pool)
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    return pictures
+
+
+def _decode_batched_parts(dec, parts, pictures, pool):
+    """Parse and reconstruct each (SPS, PPS) part as one batch.  A slab
+    parse failure raises (the JAX package's raster fallback is not part
+    of the port)."""
+    for sps, pps, groups in parts:
+        pictures.extend(dec.reconstruct_batch(
+            *dec.stage_groups(groups, sps, pps, pool=pool)))
+
+
+def group_idr_access_units(nalus):
+    """Group consecutive SLICE_IDR NALUs into access units (pictures):
+    a new picture starts where first_mb_in_slice == 0."""
+    groups = []
+    current = []
+    for n in nalus:
+        if n.nal_unit_type != NaluType.SLICE_IDR:
+            continue
+        first_mb = read_ue(BitReader(n.rbsp))
+        if first_mb == 0 and current:
+            groups.append(current)
+            current = []
+        current.append(n)
+    if current:
+        groups.append(current)
+    return groups
+
+
+def _open_stream(data: bytes, engine: str, device):
+    """Split `data` into NALUs, feed every non-IDR NALU (parameter sets,
+    SEI) to a new decoder and group the IDR slices into pictures.
+    Returns (decoder, picture groups, error count); tolerates per-NALU
+    errors as the reference's h264_decode() main loop (h264.c:76-188)."""
+    dec = H264Decoder(engine=engine, device=device)
+    errors = 0
+    nalus = []
+    for off, raw in split_annexb(data):
+        try:
+            nalus.append(parse_nalu(raw, off))
+        except (ValueError, BitstreamError) as e:
+            trace.warning("NALU", "bad NALU at %d: %s", off, e)
+            errors += 1
+            if errors > MAX_CONSECUTIVE_ERRORS:
+                break
+    idr_groups = group_idr_access_units(nalus)
+    for n in nalus:
+        if n.nal_unit_type == NaluType.SLICE_IDR:
+            continue
+        try:
+            dec.feed_nalu(n)
+        except UnsupportedStream:
+            raise
+        except (ValueError, BitstreamError) as e:
+            trace.warning("H264", "NALU decode error: %s", e)
+            errors += 1
+            if errors > MAX_CONSECUTIVE_ERRORS:
+                break
+    return dec, idr_groups, errors
+
+
+def stage_annexb(data: bytes, device=None, pool=None, timings=None):
+    """The front half of decode_annexb: every IDR picture of `data`
+    parsed into slab staging on `device`, one batch per (SPS, PPS) part.
+    Returns [(parsed_groups, PackedFrames, staging tensors), ...], the
+    arguments of H264Decoder.reconstruct_batch, the back half.  `timings`
+    (optional dict) receives the host seconds of "nalu" and, for the
+    last part, "parse" and "h2d"."""
+    t = time.perf_counter()
+    dec, groups, errors = _open_stream(data, "fused", device)
+    parts = _partition(dec, iter(groups), 0, errors)
+    if timings is not None:
+        timings["nalu"] = time.perf_counter() - t
+    return [dec.stage_groups(g, sps, pps, pool, timings)
+            for sps, pps, g in parts]
+
+
+def decode_annexb(data: bytes, max_pictures: int = 0, engine: str = "fused",
+                  device=None):
+    """Decode an Annex-B byte stream; returns a list of DecodedPicture.
+
+    device=None decodes on the GPU and raises when there is none;
+    device="cpu" runs the plain PyTorch engine."""
+    dec, idr_groups, errors = _open_stream(data, engine, device)
+    return _decode_batched(dec, iter(idr_groups), max_pictures, errors)

@@ -1,0 +1,333 @@
+"""Batch-fused wavefront reconstruction: the fused engine of the port.
+
+Port of minivideo_tpu/ops/recon_fused.py.  The batch is merged into the
+lane axis (L = B * maxw) and the picture is reconstructed one
+anti-diagonal wave at a time (wave w = 2*row + col).  Two versions of the
+TPU kernel `_wave_kernel` live here:
+
+  * `wave_kernel_cuda`: the hand-written CUDA kernel
+    (csrc/wave_kernel.cu), one launch per wave (the wave loop runs in
+    the library's C launcher, one ctypes call a batch), reading the native
+    parser's device-layout staging [B, W, S, maxw] directly and writing
+    raster Y/Cb/Cr planes.  It runs for tensors on a CUDA device.
+  * `wave_loop_plain`: the kernel's state machine in plain PyTorch
+    (segment-masked lane rolls, right column and corners, double-buffered
+    bottom rows) over the per-wave feeds [W, S, L], followed by
+    `unskew_fused`.  It runs for tensors on the CPU, and on the card only
+    where a test or chip_smoke.py compares the kernel with it.
+
+`reconstruct_frames_fused` dispatches on the device of the staging
+tensors: a CUDA tensor launches the kernel or raises; there is no
+fallback from one version to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import numpy as np
+import torch
+
+from .._build import build_shared
+from . import slab as sl
+from .recon import PackedFrames
+from .recon_lane import TAP_ROWS4, TAP_ROWS8, wave_compute_lane
+from .recon_wave import skew_tables
+
+
+def wave_schedule(g):
+    """Per-wave lane-shift schedules (dr0, shtop) from the skew tables."""
+    n_waves = g["n_waves"]
+    r0 = g["r0"].astype(np.int64)
+    dr0 = np.diff(r0, prepend=r0[0]).astype(np.int32)
+    r0m2 = np.concatenate([r0[:1], r0[:1], r0[:-2]])
+    shtop = np.where(np.arange(n_waves) >= 2, 1 - (r0 - r0m2), 0)
+    shtop = shtop.astype(np.int32)
+    assert set(np.unique(dr0)) <= {0, 1}
+    assert set(np.unique(shtop)) <= {0, 1}
+    return dr0, shtop
+
+
+def _seg_masks(maxw, batch):
+    """[1, B*maxw] int32 masks marking lanes whose roll source is inside
+    the same frame segment (right: source lane-1, left: source lane+1)."""
+    lane = np.arange(batch * maxw) % maxw
+    right = (lane >= 1).astype(np.int32)[None]
+    left = (lane <= maxw - 2).astype(np.int32)[None]
+    return right, left
+
+
+def _roll_right_seg(x, mask):
+    """Lane k <- k-1 within each maxw-lane frame segment; lane 0 zero."""
+    return torch.where(mask > 0, torch.roll(x, 1, 1), 0)
+
+
+def _roll_left_seg(x, mask):
+    """Lane k <- k+1 within each segment; last segment lane zero."""
+    return torch.where(mask > 0, torch.roll(x, -1, 1), 0)
+
+
+# ---------------------------------------------------------------------------
+# plain version of the wave kernel
+
+
+def wave_loop_plain(meta_s, coefl_s, coefc_s, dcs_s, ls4, ls8, g, batch,
+                    has8x8=True, haspcm=True):
+    """The TPU kernel's grid loop in plain PyTorch.
+
+    Feeds: meta_s [W, META_ROWS, L] int32, coefl_s [W, 256, L],
+    coefc_s [W, 128, L], dcs_s [W, DC_ROWS, L] int16, L = batch * maxw.
+    Returns (out_y [W, 256, L], out_c [W, 128, L]) uint8 tiles."""
+    W, maxw = g["n_waves"], g["maxw"]
+    L = batch * maxw
+    dev = meta_s.device
+    dr0s, shtops = wave_schedule(g)
+    mr, ml = (torch.as_tensor(m, device=dev)
+              for m in _seg_masks(maxw, batch))
+    t4, t8, tcb, tcr = (torch.as_tensor(t, device=dev)
+                        for t in sl.scale_tables(ls4, ls8))
+
+    def zeros(n):
+        return torch.zeros((n, L), dtype=torch.int32, device=dev)
+
+    row_y, row_c = zeros(24), zeros(24)
+    botA_y, botB_y, botA_c, botB_c = (zeros(16) for _ in range(4))
+    out_y = torch.empty((W, 256, L), dtype=torch.uint8, device=dev)
+    out_c = torch.empty((W, 128, L), dtype=torch.uint8, device=dev)
+    for w in range(W):
+        dr0, shtop = int(dr0s[w]), int(shtops[w])
+        ry = _roll_right_seg(row_y, mr) if dr0 == 1 else row_y
+        rc = _roll_right_seg(row_c, mr) if dr0 == 1 else row_c
+        top_row = _roll_left_seg(botB_y, ml) if shtop == 1 else botB_y
+        tr_row = _roll_left_seg(botA_y, ml) if dr0 == 0 else botA_y
+        top_c = _roll_left_seg(botB_c, ml) if shtop == 1 else botB_c
+
+        meta = meta_s[w].to(torch.int32)
+        parsed = meta[sl.R_PARSED:sl.R_PARSED + 1]
+        res_luma, res_chroma = sl.residual_from_slabs(
+            coefl_s[w].to(torch.int32), coefc_s[w].to(torch.int32),
+            dcs_s[w].to(torch.int32), meta, t4, t8, tcb, tcr,
+            has8x8=has8x8, haspcm=haspcm)
+        tile, ctile = wave_compute_lane(
+            ry[:16], ry[16:17], top_row, tr_row, rc[:16], rc[16:17],
+            rc[17:18], top_c, meta[sl.R_KIND:sl.R_KIND + 1],
+            meta[sl.R_AL:sl.R_AL + 1] > 0, meta[sl.R_AT:sl.R_AT + 1] > 0,
+            meta[sl.R_ATL:sl.R_ATL + 1] > 0, meta[sl.R_ATR:sl.R_ATR + 1] > 0,
+            parsed, meta[sl.R_MODES4:sl.R_MODES4 + 16],
+            meta[sl.R_MODES8:sl.R_MODES8 + 4],
+            meta[sl.R_I16M:sl.R_I16M + 1], meta[sl.R_CMODE:sl.R_CMODE + 1],
+            res_luma, res_chroma, has8x8=has8x8, haspcm=haspcm)
+        out_y[w] = tile.to(torch.uint8)
+        out_c[w] = ctile.to(torch.uint8)
+
+        # state updates: right column + corner, double-buffered bottom rows
+        upd = parsed > 0
+        new_row = torch.cat([tile[15::16], top_row[15:16], zeros(7)])
+        row_y = torch.where(upd, new_row, ry)
+        new_rowc = torch.cat([ctile[7::8], top_c[7:8], top_c[15:16],
+                              zeros(6)])
+        row_c = torch.where(upd, new_rowc, rc)
+        botB_y, botA_y = botA_y, tile[240:256]
+        botB_c, botA_c = botA_c, torch.cat([ctile[56:64], ctile[120:128]])
+    return out_y, out_c
+
+
+def unskew_fused(out_y, out_c, g, batch):
+    """[W, 256|128, B*maxw] -> (Y, Cb, Cr) raster planes [B, H, W]."""
+    wmb, hmb = g["wmb"], g["hmb"]
+    n_waves, maxw = g["skew_idx"].shape
+    B = batch
+    unskew = torch.as_tensor(
+        g["w_of"].astype(np.int64) * maxw + g["k_of"], device=out_y.device)
+
+    ty = out_y.reshape(n_waves, 256, B, maxw).permute(2, 0, 3, 1)
+    ty = ty.reshape(B, n_waves * maxw, 256)[:, unskew]
+    Y = ty.reshape(B, hmb, wmb, 16, 16).permute(0, 1, 3, 2, 4).reshape(
+        B, hmb * 16, wmb * 16)
+
+    tc = out_c.reshape(n_waves, 128, B, maxw).permute(2, 0, 3, 1)
+    tc = tc.reshape(B, n_waves * maxw, 128)[:, unskew]
+    tc = tc.reshape(B, hmb, wmb, 2, 8, 8)
+    Cb, Cr = (tc[:, :, :, ic].permute(0, 1, 3, 2, 4).reshape(
+        B, hmb * 8, wmb * 8) for ic in range(2))
+    return Y, Cb, Cr
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+
+
+_CU_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                       "wave_kernel.cu")
+_kernel_lib = None
+
+
+def _nvcc():
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def _nvcc_cmd(out):
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+            "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", out, _CU_SRC]
+
+
+def build_kernel() -> str:
+    """Compile csrc/wave_kernel.cu for sm_90a if its build is missing."""
+    return build_shared("mvt_wave_kernel", [_CU_SRC], _nvcc_cmd)
+
+
+def _load_kernel():
+    global _kernel_lib
+    if _kernel_lib is None:
+        lib = ctypes.CDLL(build_kernel())
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.mvt_wave_run.restype = ci
+        lib.mvt_wave_run.argtypes = [vp] * 11 + [ci] * 7 + [vp]
+        _kernel_lib = lib
+    return _kernel_lib
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(wmb, hmb):
+    """(n_waves, maxw) of a wmb x hmb picture."""
+    g = skew_tables(wmb, hmb)
+    return g["n_waves"], g["maxw"]
+
+
+@functools.lru_cache(maxsize=16)
+def _cached_tables(ls4_bytes, ls8_bytes, device):
+    ls4 = np.frombuffer(ls4_bytes, np.int32).reshape(3, 6, 4, 4)
+    ls8 = np.frombuffer(ls8_bytes, np.int32).reshape(6, 8, 8)
+    return tuple(torch.as_tensor(np.array(a), device=device)
+                 for a in (ls4, ls8, TAP_ROWS4, TAP_ROWS8))
+
+
+def _device_tables(ls4, ls8, device):
+    """int32 LevelScale [3, 6, 4, 4] / [6, 8, 8] and prediction tap
+    tables on `device`, in the layouts the kernel indexes; copied once
+    per (scaling lists, device)."""
+    ls4 = np.ascontiguousarray(ls4, np.int32)
+    ls8 = np.ascontiguousarray(ls8, np.int32)
+    if ls4.shape != (3, 6, 4, 4) or ls8.shape != (6, 8, 8):
+        raise ValueError(f"LevelScale shapes {ls4.shape}, {ls8.shape}: "
+                         f"expected (3, 6, 4, 4) and (6, 8, 8)")
+    return _cached_tables(ls4.tobytes(), ls8.tobytes(), device)
+
+
+def _check(x, name, dtype, shape):
+    if not x.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def wave_kernel_cuda(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
+                     wmb, hmb, has8x8=True, haspcm=True):
+    """Reconstruct a batch with csrc/wave_kernel.cu, one launch per wave.
+
+    Staging tensors on one CUDA device, device layout [B, W, S, maxw]:
+    meta int32 (S = 40), luma/chroma/dc int16 (S = 256/128/32).  Returns
+    raster (Y [B, 16*hmb, 16*wmb], Cb, Cr [B, 8*hmb, 8*wmb]) uint8.
+    `wave_kernel_cuda.launches` counts the kernel's launches."""
+    W, maxw = _geometry(wmb, hmb)
+    B = meta_slab.shape[0]
+    _check(meta_slab, "meta_slab", torch.int32, (B, W, sl.META_ROWS, maxw))
+    _check(luma_slab, "luma_slab", torch.int16, (B, W, 256, maxw))
+    _check(chroma_slab, "chroma_slab", torch.int16, (B, W, 128, maxw))
+    _check(dc_slab, "dc_slab", torch.int16, (B, W, sl.DC_ROWS, maxw))
+    dev = meta_slab.device
+    for x in (luma_slab, chroma_slab, dc_slab):
+        if x.device != dev:
+            raise ValueError("staging tensors lie on different devices")
+    lib = _load_kernel()
+    tabs = _device_tables(ls4, ls8, dev)
+    Y = torch.empty((B, 16 * hmb, 16 * wmb), dtype=torch.uint8, device=dev)
+    Cb = torch.empty((B, 8 * hmb, 8 * wmb), dtype=torch.uint8, device=dev)
+    Cr = torch.empty_like(Cb)
+    ptrs = [t.data_ptr() for t in (meta_slab, luma_slab, chroma_slab,
+                                   dc_slab, *tabs, Y, Cb, Cr)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.mvt_wave_run(*ptrs, B, W, maxw, wmb, hmb, int(has8x8),
+                               int(haspcm), stream)
+    if err != 0:
+        raise RuntimeError(f"wave_kernel launch failed: CUDA error {err}")
+    wave_kernel_cuda.launches += W
+    return Y, Cb, Cr
+
+
+# plain integer count of csrc/wave_kernel.cu launches: the wrapper adds
+# the W launches of a batch once mvt_wave_run has made them all, and
+# nowhere else; callers reset it to 0 to count a run
+wave_kernel_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# entry points
+
+
+def reconstruct_plain(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
+                      wmb, hmb, has8x8=True, haspcm=True):
+    """Plain version of wave_kernel_cuda on any device: the v2 feed
+    transpose, the plain wave loop and the unskew."""
+    g = skew_tables(wmb, hmb)
+    g["wmb"], g["hmb"] = wmb, hmb
+    W, maxw = g["n_waves"], g["maxw"]
+    B = meta_slab.shape[0]
+    L = B * maxw
+
+    def feed(x, S):
+        return x.permute(1, 2, 0, 3).reshape(W, S, L)
+
+    out_y, out_c = wave_loop_plain(
+        feed(meta_slab, sl.META_ROWS), feed(luma_slab, 256),
+        feed(chroma_slab, 128), feed(dc_slab, sl.DC_ROWS), ls4, ls8, g, B,
+        has8x8=has8x8, haspcm=haspcm)
+    return unskew_fused(out_y, out_c, g, B)
+
+
+def make_reconstruct_fused_slots2(wmb: int, hmb: int, batch: int,
+                                  has8x8: bool = True, haspcm: bool = True):
+    """Reconstructor over device-layout (v2) staging tensors: the CUDA
+    kernel for CUDA tensors, the plain loop for CPU tensors."""
+
+    def recon(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8):
+        if meta_slab.shape[0] != batch:
+            raise ValueError(f"expected batch {batch}, "
+                             f"got {meta_slab.shape[0]}")
+        args = (meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
+                wmb, hmb)
+        if meta_slab.is_cuda:
+            return wave_kernel_cuda(*args, has8x8=has8x8, haspcm=haspcm)
+        if meta_slab.device.type != "cpu":
+            raise ValueError(f"no fused engine for {meta_slab.device}")
+        return reconstruct_plain(*args, has8x8=has8x8, haspcm=haspcm)
+
+    return recon
+
+
+def staging_tensors(packed: PackedFrames, device=None):
+    """The four device-layout staging arrays of `packed` as tensors on
+    `device` (default: where they already lie), in the order the
+    reconstructors take them."""
+    return [torch.as_tensor(packed.arrays[k], device=device)
+            for k in ("meta_slab", "luma_slab", "chroma_slab", "dc_slab")]
+
+
+def reconstruct_frames_fused(packed: PackedFrames, device=None):
+    """Decode a PackedFrames batch with the fused engine on `device`
+    (default: where its staging arrays already lie).  Returns (Y, Cb, Cr)
+    uint8 tensors [B, H, W] on that device."""
+    recon = make_reconstruct_fused_slots2(
+        packed.wmb, packed.hmb, packed.batch, packed.has8x8, packed.haspcm)
+    return recon(*staging_tensors(packed, device), packed.ls4, packed.ls8)

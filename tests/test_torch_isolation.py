@@ -1,0 +1,131 @@
+"""The port stands alone: it imports and decodes with JAX and the JAX
+package blocked, chip_smoke.py imports neither, the port's encoder emits
+the fixture encoder's bytes, and chip_smoke.py's constants are the JAX
+package's digests of its 1080p stream."""
+
+import ast
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "minivideo_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "minivideo_tpu", "tests", "fixtures")
+
+_BLOCKED_RUN = r"""
+import importlib, json, pkgutil, sys
+for name in ("jax", "jaxlib", "minivideo_tpu"):
+    sys.modules[name] = None
+sys.path.insert(0, REPO)
+import minivideo_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(
+    minivideo_tpu_torch.__path__, "minivideo_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+from minivideo_tpu_torch.testing.h264enc import make_stream
+from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+data = make_stream(width_mbs=4, height_mbs=3, n_pictures=2, seed=11,
+                   profile=100, transform_8x8=True,
+                   mb_kinds=("i16", "i4", "i8"))
+pics = decode_annexb(data, device="cpu")
+import chip_smoke
+loaded = sorted(n for n in sys.modules
+                if sys.modules[n] is not None
+                and n.split(".")[0] in ("jax", "jaxlib", "minivideo_tpu"))
+print(json.dumps({"modules": len(mods), "pictures": len(pics),
+                  "shape": list(pics[0].y.shape), "loaded": loaded}))
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    code = "REPO = %r\n" % REPO + _BLOCKED_RUN
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["pictures"] == 2 and out["shape"] == [48, 64]
+    assert out["modules"] >= 15 and out["loaded"] == []
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def test_sources_import_nothing_of_jax():
+    bad = {os.path.relpath(path, REPO): m for path in _sources()
+           for m in _imports(path) if m.split(".")[0] in FORBIDDEN}
+    assert not bad, f"forbidden imports: {bad}"
+    assert len(list(_sources())) >= 20
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(width_mbs=6, height_mbs=4, n_pictures=2, seed=3, profile=100,
+         transform_8x8=True, mb_kinds=("i16", "i4", "i8"), n_slices=3),
+    dict(width_mbs=5, height_mbs=5, n_pictures=2, seed=4, qp=51,
+         allow_pcm=True, crop=(0, 2, 0, 2)),
+    dict(width_mbs=4, height_mbs=3, n_pictures=1, seed=5, profile=100,
+         transform_8x8=True, mb_kinds=("i8",),
+         scaling_lists=[(1, None)] * 8,
+         pps_scaling_lists=[(1, list(range(8, 24)))] * 8),
+])
+def test_encoder_copy_emits_fixture_bytes(kw):
+    # imported here, not at collection (see torch_port_helpers.py)
+    from fixtures.h264enc import make_stream as fixture_stream
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    assert make_stream(**kw) == fixture_stream(**kw)
+
+
+def test_chip_smoke_digests_are_the_jax_package_s(monkeypatch):
+    """The 1080p stream's SHA-256 and the per-picture plane digests in
+    chip_smoke.py equal what the fixture encoder and the JAX package's
+    fused engine (device staging) give, and the port's CPU decode of the
+    stream gives them too."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from fixtures.h264enc import make_stream
+    from minivideo_tpu.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.models.h264.decoder import (
+        decode_annexb as port_decode)
+    monkeypatch.setenv("MINIVIDEO_TPU_STAGING", "device")
+    data = make_stream(**chip_smoke.STREAM_KW)
+    assert hashlib.sha256(data).hexdigest() == chip_smoke.STREAM_SHA256
+
+    def digests(pics):
+        return [[hashlib.sha256(np.ascontiguousarray(a).tobytes())
+                 .hexdigest() for a in (p.y, p.cb, p.cr)] for p in pics]
+
+    assert digests(decode_annexb(data, engine="fused")) == \
+        chip_smoke.JAX_DIGESTS
+    assert digests(port_decode(data, device="cpu")) == chip_smoke.JAX_DIGESTS
+    assert len(chip_smoke.JAX_DIGESTS) == chip_smoke.STREAM_KW["n_pictures"]
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Without CUDA the script exits non-zero and prints no result."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=REPO)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
