@@ -5,26 +5,36 @@
 
 Phases, each printing one line with its seconds:
 
-  1. device  - a CUDA card must be present; prints its name and power
-               limit as nvidia-smi reports them.
-  2. build   - compiles the native entropy parser (g++) and the CUDA wave
-               kernel (nvcc, sm_90a) from the checkout, both at once.
-  3. stream  - encodes a seeded 1080p High-profile CAVLC stream of two
-               IDR pictures (I16x16/I4x4/I8x8 and I_PCM macroblocks) with
-               the port's fixture encoder and checks its SHA-256, then
-               repeats the two pictures to a batch of 16.
-  4. kernel  - every kernel of the path against its plain PyTorch
-               version on the card: the wave kernel and the plain wave
-               loop must give identical planes, on small streams with
-               each feature (8x8, PCM, multi-slice, QP extremes, custom
-               scaling lists) and on the 1080p batch.
-  5. e2e     - decode_annexb() of the 16-picture stream on the card; the
-               planes must equal the SHA-256 digests that the JAX
-               package (minivideo_tpu, engine "fused") gives for the same
-               stream, and the kernel's launch counter must have moved by
-               n_waves for the one batch.
-  6. timing  - CUDA-event medians per 1080p batch of the kernel and of
-               the plain version, the bound, and decode_annexb pictures/s.
+  1. device     - a CUDA card must be present; prints its name and power
+                  limit as nvidia-smi reports them.
+  2. build      - compiles the native entropy parser (g++) and the CUDA
+                  library (one nvcc per csrc/*.cu, sm_90a), all at once.
+  3. stream     - encodes a seeded 1080p High-profile CAVLC stream of two
+                  IDR pictures (I16x16/I4x4/I8x8 and I_PCM macroblocks)
+                  with the port's fixture encoder and checks its SHA-256,
+                  then repeats the two pictures to a batch of 16.
+  4. kernel     - the wave kernel against its plain PyTorch version on the
+                  card (identical planes): small streams with each feature
+                  (8x8, PCM, multi-slice, QP extremes, custom scaling
+                  lists) and shapes that stress the flags between rows
+                  (one MB wide, one row, right edges, a 1080p-wide strip
+                  of 3 slices, a batch of 1,200 with more rows than can be
+                  resident), then the 1080p batch, run 5 more times with
+                  identical planes.
+  5. interleave - the interleave kernel against its plain version and
+                  the library call (permute().contiguous()) on 1080p
+                  tiles of a batch of 16 (identical bytes).
+  6. e2e        - decode_annexb() of the 16-picture stream on the card;
+                  the planes must equal the SHA-256 digests that the JAX
+                  package (minivideo_tpu, engine "fused") gives for the
+                  same stream, with one wave-kernel launch for the batch;
+                  then tiles_to_raster_cuda() once, one launch.
+  7. timing     - per 1080p batch of 16: CUDA-event time over
+                  back-to-back calls of both kernels, of their plain
+                  versions and of the interleave library call, and
+                  torch.profiler device time of both kernels; the wave
+                  kernel's times for one picture (B = 1); the bounds;
+                  decode_annexb pictures/s with a host breakdown.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -43,12 +53,10 @@ import sys
 import threading
 import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+# the 1080p stream: make_stream(**STREAM_KW) from minivideo_tpu_torch.testing
+from minivideo_tpu_torch.testing.streams import STREAM_1080P as STREAM_KW
 
-# 1080p stream: make_stream(**STREAM_KW) from minivideo_tpu_torch.testing
-STREAM_KW = dict(width_mbs=120, height_mbs=68, n_pictures=2, seed=2026,
-                 profile=100, transform_8x8=True, allow_pcm=True,
-                 mb_kinds=("i16", "i4", "i8"))
+HERE = os.path.dirname(os.path.abspath(__file__))
 STREAM_SHA256 = ("f5ed8d3bf8a1157659e5466db616b279"
                  "af10c149ee3d4ade79d47911160193f2")
 # (Y, Cb, Cr) SHA-256 per picture from the JAX package's
@@ -62,12 +70,16 @@ JAX_DIGESTS = [
      "5f208c810cafa0b56004eb3dd83fae060dff5773d6bb84d26a966f76dcb28a1b"],
 ]
 BATCH = 16
-TIMED_RUNS = 5
+TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peak
 
 
+CARD = []          # nvidia-smi's "name, power limit", once it is read
+
+
 def log(phase, t0, msg):
-    print(f"[{phase}] {time.time() - t0:.2f}s {msg}", flush=True)
+    card = f" | card: {CARD[0]}" if CARD else ""
+    print(f"[{phase}] {time.time() - t0:.2f}s {msg}{card}", flush=True)
 
 
 def nvidia_smi_line():
@@ -79,37 +91,29 @@ def nvidia_smi_line():
     return r.stdout.strip().splitlines()[0]
 
 
-def repeat_pictures(data, reps):
-    """Annex-B stream with its IDR access units repeated `reps` times
-    (one slice per picture): parameter sets, pictures, trailing NALUs."""
-    from minivideo_tpu_torch.models.h264.nalu import split_annexb
-    units = [raw for _, raw in split_annexb(data)]
-    idr = [i for i, u in enumerate(units) if u[0] & 0x1F == 5]
-    head, pics, tail = (units[:idr[0]], units[idr[0]:idr[-1] + 1],
-                        units[idr[-1] + 1:])
-    sc = b"\x00\x00\x00\x01"
-    return b"".join(sc + u for u in head + pics * reps + tail)
-
-
 def sha(a):
     return hashlib.sha256(a.tobytes()).hexdigest()
 
 
-def cuda_ms(fn, runs):
-    """Median CUDA-event milliseconds of fn() over `runs`, after a
-    warm-up call."""
+def cuda_ms(fn, runs, reps=3):
+    """Milliseconds per fn() call on the card: CUDA events around `runs`
+    back-to-back calls, over the count, median of `reps` such groups,
+    after a warm-up call.  The calls queue up behind each other, so the
+    host's time to enqueue a call hides behind the card's work wherever
+    it is shorter."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(runs):
+    for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(runs):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / runs)
     return statistics.median(times)
 
 
@@ -137,10 +141,41 @@ def staged(stream, device, pool=None):
 
 
 # bytes the wave kernel must move per MB (csrc/wave_kernel.cu, "Bound"):
-# every real MB reads its meta row; a parsed one also reads its luma,
-# chroma and 24 DC coefficient rows; each writes 256 + 128 plane bytes.
-# Padding lanes of a wave read nothing.
+# every MB reads its meta row; a parsed one also reads its luma, chroma
+# and 24 DC coefficient rows; each writes 256 + 128 plane bytes.
 META_BYTES, COEF_BYTES, PLANE_BYTES = 40 * 4, (256 + 128 + 24) * 2, 384
+# the small streams of the kernel phase: each feature of the kernel, then
+# shapes that stress the flags between rows
+SMALL = [
+    dict(width_mbs=5, height_mbs=4, n_pictures=3, seed=1),
+    dict(width_mbs=7, height_mbs=5, n_pictures=3, seed=2, profile=100,
+         transform_8x8=True, mb_kinds=("i16", "i4", "i8"), n_slices=3),
+    dict(width_mbs=6, height_mbs=6, n_pictures=2, seed=3, qp=51,
+         profile=100, transform_8x8=True, mb_kinds=("i8", "i4")),
+    dict(width_mbs=6, height_mbs=3, n_pictures=2, seed=4, qp=0,
+         allow_pcm=True, mb_kinds=("i16",)),
+    dict(width_mbs=4, height_mbs=4, n_pictures=2, seed=5, profile=100,
+         transform_8x8=True, mb_kinds=("i16", "i4", "i8"),
+         scaling_lists=[(1, None)] * 8,
+         pps_scaling_lists=[(1, list(range(8, 24)))] * 6
+         + [(1, list(range(6, 70)))] * 2),
+    dict(width_mbs=1, height_mbs=12, n_pictures=2, seed=6,
+         mb_kinds=("i16", "i4")),
+    dict(width_mbs=12, height_mbs=1, n_pictures=2, seed=7,
+         mb_kinds=("i16", "i4")),
+    dict(width_mbs=2, height_mbs=9, n_pictures=2, seed=8, profile=100,
+         transform_8x8=True, mb_kinds=("i16", "i4", "i8")),
+    dict(width_mbs=120, height_mbs=3, n_pictures=2, seed=9, profile=100,
+         transform_8x8=True, mb_kinds=("i16", "i4", "i8"), n_slices=3,
+         allow_pcm=True),
+]
+# a batch with more rows than can be resident at once (B * hmb = 4,800
+# blocks against 132 SMs x 32): the stream of make_stream(**WIDE_KW)
+# repeated to WIDE_BATCH pictures
+WIDE_KW = dict(width_mbs=8, height_mbs=4, n_pictures=2, seed=10,
+               mb_kinds=("i16", "i4"))
+WIDE_BATCH = 1200
+REPEATS = 5
 
 
 def wave_kernel_bytes(packed):
@@ -151,15 +186,20 @@ def wave_kernel_bytes(packed):
     from minivideo_tpu_torch.ops.slab import R_PARSED
     n_mbs = packed.batch * packed.wmb * packed.hmb
     n_parsed = int((packed.arrays["meta_slab"][:, :, R_PARSED] > 0).sum())
-    tables = 4 * (packed.ls4.size + packed.ls8.size
-                  + TAP_ROWS4.size + TAP_ROWS8.size)
+    tables = (4 * (packed.ls4.size + packed.ls8.size)
+              + TAP_ROWS4.size + TAP_ROWS8.size)    # int32, uint8
     return (n_mbs * (META_BYTES + PLANE_BYTES) + n_parsed * COEF_BYTES
             + tables)
 
 
+def max_err(got, want):
+    return max(int((a.int() - b.int()).abs().max())
+               for a, b in zip(got, want))
+
+
 def compare_kernel(packed, arrs):
     """Run the CUDA kernel and the plain loop on the same staging on the
-    card; returns max |kernel - plain| over all planes."""
+    card; returns (max |kernel - plain| over all planes, kernel planes)."""
     import torch
     from minivideo_tpu_torch.ops.recon_fused import (reconstruct_plain,
                                                      wave_kernel_cuda)
@@ -168,8 +208,7 @@ def compare_kernel(packed, arrs):
     got = wave_kernel_cuda(*args, **kw)
     want = reconstruct_plain(*args, **kw)
     torch.cuda.synchronize()
-    return max(int((a.int() - b.int()).abs().max())
-               for a, b in zip(got, want))
+    return max_err(got, want), got
 
 
 def main():
@@ -190,17 +229,18 @@ def main():
         return 2
     from minivideo_tpu_torch import native
     from minivideo_tpu_torch.models.h264.decoder import decode_annexb
-    from minivideo_tpu_torch.ops import recon_fused
-    from minivideo_tpu_torch.ops.recon_wave import skew_tables
+    from minivideo_tpu_torch.ops import interleave, kernels, recon_fused
     from minivideo_tpu_torch.testing.h264enc import make_stream
+    from minivideo_tpu_torch.testing.streams import repeat_pictures
     dev = torch.device("cuda")
     card = nvidia_smi_line()
+    CARD.append(card)
     kind = torch.cuda.get_device_name(0)
     log("device", t0, f"{kind} | nvidia-smi: {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"count {torch.cuda.device_count()}")
 
-    # ---- 2. build (both compilers at once) ---------------------------------
+    # ---- 2. build (every compiler at once) ---------------------------------
     builds = {}
 
     def build(name, fn):
@@ -213,7 +253,8 @@ def main():
 
     threads = [threading.Thread(target=build, args=a) for a in
                (("entropy.cc (g++)", native.build),
-                ("wave_kernel.cu (nvcc sm_90a)", recon_fused.build_kernel))]
+                ("csrc/*.cu (nvcc sm_90a, one per source, then link)",
+                 kernels.build))]
     for th in threads:
         th.start()
     for th in threads:
@@ -226,8 +267,9 @@ def main():
     if failed:
         return 1
     from minivideo_tpu_torch._build import LOGS
-    for line in LOGS.get("mvt_wave_kernel", "").splitlines():
-        if "ptxas info" in line and ("registers" in line or "smem" in line):
+    for line in LOGS.get(kernels.NAME, "").splitlines():
+        if "ptxas info" in line and ("registers" in line or "smem" in line
+                                     or "Compiling" in line):
             log("build", t0, line.strip())
 
     # ---- 3. stream ---------------------------------------------------------
@@ -243,62 +285,118 @@ def main():
     stream = repeat_pictures(data, BATCH // 2)
 
     # ---- 4. kernel vs plain ------------------------------------------------
-    small = [
-        dict(width_mbs=5, height_mbs=4, n_pictures=3, seed=1),
-        dict(width_mbs=7, height_mbs=5, n_pictures=3, seed=2, profile=100,
-             transform_8x8=True, mb_kinds=("i16", "i4", "i8"), n_slices=3),
-        dict(width_mbs=6, height_mbs=6, n_pictures=2, seed=3, qp=51,
-             profile=100, transform_8x8=True, mb_kinds=("i8", "i4")),
-        dict(width_mbs=6, height_mbs=3, n_pictures=2, seed=4, qp=0,
-             allow_pcm=True, mb_kinds=("i16",)),
-        dict(width_mbs=4, height_mbs=4, n_pictures=2, seed=5, profile=100,
-             transform_8x8=True, mb_kinds=("i16", "i4", "i8"),
-             scaling_lists=[(1, None)] * 8,
-             pps_scaling_lists=[(1, list(range(8, 24)))] * 6
-             + [(1, list(range(6, 70)))] * 2),
-    ]
     t = time.time()
     errs = []
-    for kw in small:
+    for kw in SMALL:
         packed, arrs, _ = staged(make_stream(**kw), dev)
-        errs.append(compare_kernel(packed, arrs))
+        errs.append(compare_kernel(packed, arrs)[0])
+    wide = repeat_pictures(make_stream(**WIDE_KW), WIDE_BATCH // 2)
+    packed, arrs, _ = staged(wide, dev)
+    err_wide = compare_kernel(packed, arrs)[0]
     packed, arrs, _ = staged(stream, dev)
-    err1080 = compare_kernel(packed, arrs)
-    ok = max(errs) == 0 and err1080 == 0
+    err1080, first = compare_kernel(packed, arrs)
+    args = (*arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb)
+    kw = dict(has8x8=packed.has8x8, haspcm=packed.haspcm)
+    same = [all(torch.equal(a, b) for a, b in
+                zip(recon_fused.wave_kernel_cuda(*args, **kw), first))
+            for _ in range(REPEATS)]
+    ok = max(errs) == 0 and err_wide == 0 and err1080 == 0 and all(same)
     log("kernel", t0, f"wave_kernel vs plain wave loop (tolerance 0): small "
-        f"streams max|err| {errs}, 1080p B={BATCH} max|err| {err1080} "
-        f"({time.time() - t:.2f}s) " + ("ok" if ok else "MISMATCH"))
+        f"streams max|err| {errs}, {WIDE_KW['width_mbs']}x"
+        f"{WIDE_KW['height_mbs']} B={WIDE_BATCH} max|err| {err_wide}, "
+        f"1080p B={BATCH} max|err| {err1080}; {REPEATS} repeats identical: "
+        f"{same} ({time.time() - t:.2f}s) " + ("ok" if ok else "MISMATCH"))
     if not ok:
         failed.append("kernel")
 
-    # ---- 5. end to end (the main path) -------------------------------------
-    g = skew_tables(120, 68)
+    # ---- 5. interleave vs plain and library --------------------------------
+    t = time.time()
+    wmb, hmb = packed.wmb, packed.hmb
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    tiles = torch.randint(0, 256, (BATCH, wmb * hmb, 256), generator=gen,
+                          device=dev, dtype=torch.uint8)
+
+    def library():
+        return tiles.view(BATCH, hmb, wmb, 16, 16).permute(
+            0, 1, 3, 2, 4).contiguous().view(BATCH, 16 * hmb, 16 * wmb)
+
+    got = interleave.tiles_to_raster_cuda(tiles, wmb, hmb)
+    want = interleave.tiles_to_raster_plain(tiles, wmb, hmb)
+    lib_out = library()
+    torch.cuda.synchronize()
+    err_il = max(max_err([got], [want]), max_err([got], [lib_out]))
+    ok = err_il == 0 and got.shape == (BATCH, 16 * hmb, 16 * wmb)
+    log("interleave", t0, f"tiles_to_raster_cuda vs plain and vs "
+        f"permute().contiguous(), 1080p B={BATCH} (tolerance 0): max|err| "
+        f"{err_il} ({time.time() - t:.2f}s) " + ("ok" if ok else "MISMATCH"))
+    if not ok:
+        failed.append("interleave")
+
+    # ---- 6. end to end (the main paths) ------------------------------------
     t = time.time()
     recon_fused.wave_kernel_cuda.launches = 0
+    interleave.tiles_to_raster_cuda.launches = 0
     pics = decode_annexb(stream)
     launches = recon_fused.wave_kernel_cuda.launches
+    il_other = interleave.tiles_to_raster_cuda.launches
     e2e_s = time.time() - t
     got = [[sha(p.y), sha(p.cb), sha(p.cr)] for p in pics]
     want = [JAX_DIGESTS[i % len(JAX_DIGESTS)] for i in range(BATCH)]
     ok_shape = (len(pics) == BATCH and pics[0].y.shape == (1088, 1920)
                 and pics[0].cb.shape == (544, 960))
-    ok = ok_shape and got == want and launches == g["n_waves"]
+    ok = ok_shape and got == want and launches == 1 and il_other == 0
     log("e2e", t0, f"decode_annexb: {len(pics)} pictures in {e2e_s:.3f}s, "
         f"planes {'=' if got == want else '!='} JAX digests, wave_kernel "
-        f"launches {launches} (n_waves {g['n_waves']}) "
-        + ("ok" if ok else "FAILED"))
+        f"launches {launches} (want 1 per batch), interleave launches "
+        f"{il_other} (want 0) " + ("ok" if ok else "FAILED"))
     if not ok:
         failed.append("e2e")
+    recon_fused.wave_kernel_cuda.launches = 0
+    interleave.tiles_to_raster_cuda.launches = 0
+    raster = interleave.tiles_to_raster_cuda(tiles, wmb, hmb)
+    torch.cuda.synchronize()
+    il_launches = interleave.tiles_to_raster_cuda.launches
+    ok = (il_launches == 1 and recon_fused.wave_kernel_cuda.launches == 0
+          and torch.equal(raster, lib_out))
+    log("e2e", t0, f"tiles_to_raster_cuda: interleave launches "
+        f"{il_launches} (want 1) " + ("ok" if ok else "FAILED"))
+    if not ok:
+        failed.append("e2e interleave")
 
-    # ---- 6. timing ---------------------------------------------------------
-    args = (*arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb)
-    kw = dict(has8x8=packed.has8x8, haspcm=packed.haspcm)
-    kernel_ms = cuda_ms(lambda: recon_fused.wave_kernel_cuda(*args, **kw),
-                        TIMED_RUNS)
+    # ---- 7. timing ---------------------------------------------------------
+    def wave(a=arrs, check=False):
+        return recon_fused.wave_kernel_cuda(
+            *a, packed.ls4, packed.ls8, wmb, hmb, check=check, **kw)
+
+    one = [x[:1] for x in arrs]            # the first picture alone
+    kernel_ms = cuda_ms(wave, TIMED_RUNS)
+    kernel1_ms = cuda_ms(lambda: wave(one), TIMED_RUNS)
     plain_ms = cuda_ms(lambda: recon_fused.reconstruct_plain(*args, **kw),
-                       TIMED_RUNS)
+                       1)
     nbytes = wave_kernel_bytes(packed)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    il_ms = cuda_ms(lambda: interleave.tiles_to_raster_cuda(tiles, wmb, hmb),
+                    TIMED_RUNS)
+    il_plain_ms = cuda_ms(
+        lambda: interleave.tiles_to_raster_plain(tiles, wmb, hmb),
+        TIMED_RUNS)
+    il_lib_ms = cuda_ms(library, TIMED_RUNS)
+    il_bytes = 2 * tiles.numel()
+    il_bound_ms = il_bytes / HBM_BYTES_PER_S * 1e3
+    prof = {}
+    for name, fn, kname in (
+            ("wave_kernel B=16", wave, "wave_kernel"),
+            ("wave_kernel B=1", lambda: wave(one), "wave_kernel"),
+            ("interleave_kernel B=16",
+             lambda: interleave.tiles_to_raster_cuda(tiles, wmb, hmb),
+             "interleave_kernel")):
+        try:
+            prof[name] = profiled_kernel_ms(fn, kname)
+        except RuntimeError as e:            # a diagnostic, not a check
+            prof[name] = f"failed: {e}"
+    log("timing", t0, "torch.profiler device time per call (ms, kernels): "
+        + "; ".join(f"{k} {v if v else 'not measured'}"
+                    for k, v in prof.items()))
     walls = []
     for _ in range(3):
         t = time.time()
@@ -310,44 +408,48 @@ def main():
     with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
         steps = [staged(stream, dev, pool)[2] for _ in range(3)]
     split = {k: statistics.median(st[k] for st in steps) for k in steps[0]}
-    # host time to enqueue the 254 launches (no sync): near the event
-    # time above means the launches, not the card, set the pace
+    # host time to enqueue the batch's launch (no sync)
     enqueue = []
     for _ in range(TIMED_RUNS):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        planes = recon_fused.wave_kernel_cuda(*args, **kw)
+        planes = wave()
         enqueue.append(time.perf_counter() - t)
     split["kernel_enqueue"] = statistics.median(enqueue)
-    try:
-        prof = profiled_kernel_ms(
-            lambda: recon_fused.wave_kernel_cuda(*args, **kw), "wave_kernel")
-    except RuntimeError as e:                # a diagnostic, not a check
-        prof = f"failed: {e}"
-    log("timing", t0, "torch.profiler device time of wave_kernel per "
-        "batch (ms, kernels): " + (str(prof) if prof else "not measured")
-        + f" | card: {card}")
-    torch.cuda.synchronize()
+    # raises if a wait for the row above timed out in any launch above that
+    # went unchecked (every timed, profiled and enqueued one)
+    recon_fused.check_waits()
     t = time.time()
     [p.cpu() for p in planes]
     split["d2h"] = time.time() - t
     split["kernel"] = kernel_ms / 1e3
     log("timing", t0, "decode_annexb steps (host clock, s, median of 3): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-        + f" | card: {card}")
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     log("timing", t0, f"per 1080p batch of {BATCH}: wave_kernel "
-        f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
-        f"ms ({nbytes} bytes); decode_annexb {BATCH / e2e_med:.2f} "
-        f"pictures/s (median of 3, {e2e_med:.3f}s) | card: {card}")
-    print(json.dumps({"kernels": [{
-        "name": "wave_kernel", "route": "cuda",
-        "source": "minivideo_tpu_torch/ops/csrc/wave_kernel.cu",
-        "replaces": "minivideo_tpu/ops/recon_fused.py:80",
-        "launches": launches, "max_abs_err": max(errs + [err1080]),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": None}]}))
+        f"{kernel_ms:.3f} ms (B=1: {kernel1_ms:.3f} ms, "
+        f"{kernel1_ms / (2 * hmb + wmb - 2) * 1e3:.2f} us per dependent "
+        f"MB step), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({nbytes} bytes); interleave {il_ms:.4f} ms, plain "
+        f"{il_plain_ms:.4f} ms, permute().contiguous() {il_lib_ms:.4f} ms, "
+        f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
+        f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
+    print(json.dumps({"kernels": [
+        {"name": "wave_kernel", "route": "cuda",
+         "source": "minivideo_tpu_torch/ops/csrc/wave_kernel.cu",
+         "replaces": "minivideo_tpu/ops/recon_fused.py:80",
+         "launches": launches, "max_abs_err": max(errs + [err_wide,
+                                                          err1080]),
+         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "interleave_kernel", "route": "cuda",
+         "source": "minivideo_tpu_torch/ops/csrc/interleave_kernel.cu",
+         "replaces": "tools/probe_interleave.py:100",
+         "launches": il_launches, "max_abs_err": err_il,
+         "ms": il_ms, "plain_ms": il_plain_ms, "bound_ms": il_bound_ms,
+         "bound_by": "bytes", "library_ms": il_lib_ms}], "card": card}))
     print(json.dumps({"e2e_pictures_per_s": BATCH / e2e_med,
-                      "batch": BATCH, "card": card}))
+                      "batch": BATCH, "wave_kernel_b1_ms": kernel1_ms,
+                      "card": card}))
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

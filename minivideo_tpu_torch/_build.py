@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 
@@ -19,13 +20,36 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 LOGS: dict = {}
 
 
-def build_shared(name: str, sources, cmd, timeout: int = 300) -> str:
+def _run_all(name, argvs, timeout):
+    """Run every argv at once; raise if any fails or outlives `timeout`."""
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    LOGS[name] = LOGS.get(name, "") + "".join(outs)
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"building {name} failed (exit "
+                               f"{p.returncode}):\n{out[-4000:]}")
+
+
+def build_shared(name: str, sources, cmd, timeout: int = 300,
+                 compile_cmd=None) -> str:
     """Compile `sources` into `_build/lib<name>-<hash>.so` unless present.
 
-    `cmd(out_path)` returns the compiler argv writing to out_path.  The
-    hash covers the sources, every header beside them and the argv, so
-    any change rebuilds.  Concurrent builds (test workers) each write
-    a private temporary file and rename it into place atomically.
+    `cmd(out_path, inputs)` returns the argv that writes the library to
+    out_path from `inputs`: the sources themselves or, with
+    `compile_cmd(src, obj)`, the objects of one compiler process per
+    source, all started together.  The hash covers the sources, every
+    header beside them and the argvs, so any change rebuilds.
+    Concurrent builds (test workers) each write private temporary files
+    and rename the library into place atomically.
     """
     h = hashlib.sha256()
     dirs = sorted({os.path.dirname(s) for s in sources})
@@ -35,23 +59,25 @@ def build_shared(name: str, sources, cmd, timeout: int = 300) -> str:
     for path in deps:
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(cmd("OUT")).encode())
+    h.update(" ".join(cmd("OUT", sources)).encode())
+    if compile_cmd is not None:
+        h.update(" ".join(compile_cmd("SRC", "OBJ")).encode())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    tmp = os.path.join(tmpdir, "lib.so")
+    LOGS[name] = ""
     try:
-        r = subprocess.run(cmd(tmp), capture_output=True, text=True,
-                           timeout=timeout)
-        LOGS[name] = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"building {name} failed (exit {r.returncode}):\n"
-                f"{r.stderr[-4000:]}")
+        inputs = list(sources)
+        if compile_cmd is not None:
+            inputs = [os.path.join(tmpdir, f"{i}.o")
+                      for i in range(len(sources))]
+            _run_all(name, [compile_cmd(s, o)
+                            for s, o in zip(sources, inputs)], timeout)
+        _run_all(name, [cmd(tmp, inputs)], timeout)
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out

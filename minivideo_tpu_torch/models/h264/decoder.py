@@ -24,6 +24,7 @@ import torch
 
 from ... import trace
 from ...bitio import BitReader, BitstreamError
+from ...device import resolve_device
 from ...native import parse_slice_native_slab2
 from ...ops.recon import make_slab_staging2, pack_frames_slots2
 from ...ops.recon_fused import (make_reconstruct_fused_slots2,
@@ -46,19 +47,6 @@ def resolve_engine(engine: str) -> str:
         return "fused"
     raise ValueError(f"engine {engine!r} is not part of the port "
                      f"(only 'fused')")
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device to decode on: CUDA unless the caller names another.
-
-    device=None asks for the GPU and raises when there is none; the CPU
-    (the plain PyTorch engine) runs only when asked for by name."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass "
-                               "device='cpu' to decode on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 @dataclass

@@ -22,9 +22,9 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
 _lib = None
 
 
-def _cmd(out):
+def _cmd(out, sources):
     return ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
-            "-o", out, _SRC]
+            "-o", out, *sources]
 
 
 def build() -> str:

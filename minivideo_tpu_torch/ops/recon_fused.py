@@ -1,16 +1,16 @@
 """Batch-fused wavefront reconstruction: the fused engine of the port.
 
-Port of minivideo_tpu/ops/recon_fused.py.  The batch is merged into the
-lane axis (L = B * maxw) and the picture is reconstructed one
-anti-diagonal wave at a time (wave w = 2*row + col).  Two versions of the
-TPU kernel `_wave_kernel` live here:
+Port of minivideo_tpu/ops/recon_fused.py.  Two versions of the TPU
+kernel `_wave_kernel` live here:
 
   * `wave_kernel_cuda`: the hand-written CUDA kernel
-    (csrc/wave_kernel.cu), one launch per wave (the wave loop runs in
-    the library's C launcher, one ctypes call a batch), reading the native
+    (csrc/wave_kernel.cu), one persistent launch per batch with one block
+    per (frame, MB row) and flags between rows, reading the native
     parser's device-layout staging [B, W, S, maxw] directly and writing
     raster Y/Cb/Cr planes.  It runs for tensors on a CUDA device.
-  * `wave_loop_plain`: the kernel's state machine in plain PyTorch
+  * `wave_loop_plain`: the TPU kernel's grid loop in plain PyTorch: the
+    batch merged into the lane axis (L = B * maxw), one anti-diagonal
+    wave at a time (wave w = 2*row + col), its state machine
     (segment-masked lane rolls, right column and corners, double-buffered
     bottom rows) over the per-wave feeds [W, S, L], followed by
     `unskew_fused`.  It runs for tensors on the CPU, and on the card only
@@ -23,14 +23,13 @@ fallback from one version to the other.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import os
 
 import numpy as np
 import torch
 
-from .._build import build_shared
+from ..device import resolve_device
+from . import kernels
 from . import slab as sl
 from .recon import PackedFrames
 from .recon_lane import TAP_ROWS4, TAP_ROWS8, wave_compute_lane
@@ -159,39 +158,6 @@ def unskew_fused(out_y, out_c, g, batch):
 # the CUDA kernel
 
 
-_CU_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                       "wave_kernel.cu")
-_kernel_lib = None
-
-
-def _nvcc():
-    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def _nvcc_cmd(out):
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-            "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", out, _CU_SRC]
-
-
-def build_kernel() -> str:
-    """Compile csrc/wave_kernel.cu for sm_90a if its build is missing."""
-    return build_shared("mvt_wave_kernel", [_CU_SRC], _nvcc_cmd)
-
-
-def _load_kernel():
-    global _kernel_lib
-    if _kernel_lib is None:
-        lib = ctypes.CDLL(build_kernel())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mvt_wave_run.restype = ci
-        lib.mvt_wave_run.argtypes = [vp] * 11 + [ci] * 7 + [vp]
-        _kernel_lib = lib
-    return _kernel_lib
-
-
 @functools.lru_cache(maxsize=None)
 def _geometry(wmb, hmb):
     """(n_waves, maxw) of a wmb x hmb picture."""
@@ -199,16 +165,24 @@ def _geometry(wmb, hmb):
     return g["n_waves"], g["maxw"]
 
 
+# the tap tables as the kernel reads them: one byte per entry (indices
+# below 25, weights, rounding and shift below 4)
+_TAPS4_U8, _TAPS8_U8 = (np.ascontiguousarray(t, np.uint8)
+                        for t in (TAP_ROWS4, TAP_ROWS8))
+assert all((t8 == t).all() for t8, t in ((_TAPS4_U8, TAP_ROWS4),
+                                         (_TAPS8_U8, TAP_ROWS8)))
+
+
 @functools.lru_cache(maxsize=16)
 def _cached_tables(ls4_bytes, ls8_bytes, device):
     ls4 = np.frombuffer(ls4_bytes, np.int32).reshape(3, 6, 4, 4)
     ls8 = np.frombuffer(ls8_bytes, np.int32).reshape(6, 8, 8)
     return tuple(torch.as_tensor(np.array(a), device=device)
-                 for a in (ls4, ls8, TAP_ROWS4, TAP_ROWS8))
+                 for a in (ls4, ls8, _TAPS4_U8, _TAPS8_U8))
 
 
 def _device_tables(ls4, ls8, device):
-    """int32 LevelScale [3, 6, 4, 4] / [6, 8, 8] and prediction tap
+    """int32 LevelScale [3, 6, 4, 4] / [6, 8, 8] and uint8 prediction tap
     tables on `device`, in the layouts the kernel indexes; copied once
     per (scaling lists, device)."""
     ls4 = np.ascontiguousarray(ls4, np.int32)
@@ -231,14 +205,12 @@ def _check(x, name, dtype, shape):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def wave_kernel_cuda(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
-                     wmb, hmb, has8x8=True, haspcm=True):
-    """Reconstruct a batch with csrc/wave_kernel.cu, one launch per wave.
-
-    Staging tensors on one CUDA device, device layout [B, W, S, maxw]:
-    meta int32 (S = 40), luma/chroma/dc int16 (S = 256/128/32).  Returns
-    raster (Y [B, 16*hmb, 16*wmb], Cb, Cr [B, 8*hmb, 8*wmb]) uint8.
-    `wave_kernel_cuda.launches` counts the kernel's launches."""
+def _wave_launch(load, meta_slab, luma_slab, chroma_slab, dc_slab, ls4,
+                 ls8, wmb, hmb, has8x8, haspcm):
+    """Check the staging, allocate the planes and the counters, and make
+    one launch of the library that load() returns (kernels.load or a
+    build of it with defines).  Returns the planes and the error word,
+    which the launch may still be writing."""
     W, maxw = _geometry(wmb, hmb)
     B = meta_slab.shape[0]
     _check(meta_slab, "meta_slab", torch.int32, (B, W, sl.META_ROWS, maxw))
@@ -249,26 +221,64 @@ def wave_kernel_cuda(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
     for x in (luma_slab, chroma_slab, dc_slab):
         if x.device != dev:
             raise ValueError("staging tensors lie on different devices")
-    lib = _load_kernel()
+    lib = load()
     tabs = _device_tables(ls4, ls8, dev)
     Y = torch.empty((B, 16 * hmb, 16 * wmb), dtype=torch.uint8, device=dev)
     Cb = torch.empty((B, 8 * hmb, 8 * wmb), dtype=torch.uint8, device=dev)
     Cr = torch.empty_like(Cb)
+    # row progress [B, hmb], then the row ticket, then the error word
+    ctr = torch.zeros(B * hmb + 2, dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in (meta_slab, luma_slab, chroma_slab,
-                                   dc_slab, *tabs, Y, Cb, Cr)]
+                                   dc_slab, *tabs, Y, Cb, Cr, ctr)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.mvt_wave_run(*ptrs, B, W, maxw, wmb, hmb, int(has8x8),
                                int(haspcm), stream)
     if err != 0:
         raise RuntimeError(f"wave_kernel launch failed: CUDA error {err}")
-    wave_kernel_cuda.launches += W
+    return Y, Cb, Cr, ctr[-1:]
+
+
+# error words of launches made with check=False, until check_waits()
+_unchecked: list = []
+
+
+def check_waits(*words):
+    """Wait for the launches whose error words are `words`, and for every
+    launch made with check=False since the last call, and raise if a wait
+    for the row above timed out in any of them."""
+    words = [*_unchecked, *words]
+    _unchecked.clear()
+    if any(int(w) != 0 for w in words):
+        raise RuntimeError("wave_kernel: a wait for the row above timed "
+                           "out; the planes are not valid")
+
+
+def wave_kernel_cuda(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
+                     wmb, hmb, has8x8=True, haspcm=True, check=True):
+    """Reconstruct a batch with csrc/wave_kernel.cu in one launch.
+
+    Staging tensors on one CUDA device, device layout [B, W, S, maxw]:
+    meta int32 (S = 40), luma/chroma/dc int16 (S = 256/128/32).  Returns
+    raster (Y [B, 16*hmb, 16*wmb], Cb, Cr [B, 8*hmb, 8*wmb]) uint8.
+    With `check` (the default) it waits for the kernel and raises if a
+    wait between rows timed out (see check_waits); check=False leaves the
+    launch in flight, for timing, and the next check_waits() checks it.
+    `wave_kernel_cuda.launches` counts the kernel's launches."""
+    Y, Cb, Cr, word = _wave_launch(
+        kernels.load, meta_slab, luma_slab, chroma_slab, dc_slab, ls4,
+        ls8, wmb, hmb, has8x8, haspcm)
+    wave_kernel_cuda.launches += 1
+    if check:
+        check_waits(word)
+    else:
+        _unchecked.append(word)
     return Y, Cb, Cr
 
 
 # plain integer count of csrc/wave_kernel.cu launches: the wrapper adds
-# the W launches of a batch once mvt_wave_run has made them all, and
-# nowhere else; callers reset it to 0 to count a run
+# one per batch once mvt_wave_run has launched, and nowhere else; callers
+# reset it to 0 to count a run
 wave_kernel_cuda.launches = 0
 
 
@@ -318,16 +328,22 @@ def make_reconstruct_fused_slots2(wmb: int, hmb: int, batch: int,
 
 def staging_tensors(packed: PackedFrames, device=None):
     """The four device-layout staging arrays of `packed` as tensors on
-    `device` (default: where they already lie), in the order the
-    reconstructors take them."""
-    return [torch.as_tensor(packed.arrays[k], device=device)
+    `device`, in the order the reconstructors take them.  device=None
+    leaves tensors where they lie and puts numpy staging on the GPU
+    (raising where there is none)."""
+    arrs = [packed.arrays[k]
             for k in ("meta_slab", "luma_slab", "chroma_slab", "dc_slab")]
+    if device is None and all(isinstance(a, torch.Tensor) for a in arrs):
+        return arrs
+    device = resolve_device(device)
+    return [torch.as_tensor(a, device=device) for a in arrs]
 
 
 def reconstruct_frames_fused(packed: PackedFrames, device=None):
     """Decode a PackedFrames batch with the fused engine on `device`
-    (default: where its staging arrays already lie).  Returns (Y, Cb, Cr)
-    uint8 tensors [B, H, W] on that device."""
+    (default: where its staging tensors lie, or the GPU for numpy
+    staging).  Returns (Y, Cb, Cr) uint8 tensors [B, H, W] on that
+    device."""
     recon = make_reconstruct_fused_slots2(
         packed.wmb, packed.hmb, packed.batch, packed.has8x8, packed.haspcm)
     return recon(*staging_tensors(packed, device), packed.ls4, packed.ls8)

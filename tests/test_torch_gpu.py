@@ -1,6 +1,6 @@
-"""GPU cases of the port: the CUDA wave kernel against its plain PyTorch
-version on the card, with tolerance 0.  Each test skips without a CUDA
-card (the kernel has no CPU mode) and carries the `cuda` marker
+"""GPU cases of the port: the CUDA kernels against their plain PyTorch
+versions on the card, with tolerance 0.  Each test skips without a CUDA
+card (the kernels have no CPU mode) and carries the `cuda` marker
 registered in pyproject.toml.  This file imports neither JAX nor
 the JAX package, so it runs on the GPU host, where JAX is absent:
 
@@ -25,7 +25,26 @@ STREAMS = {
     "qp0_pcm": dict(width_mbs=6, height_mbs=3, n_pictures=2, seed=43, qp=0,
                     allow_pcm=True, mb_kinds=("i16",)),
     "odd": dict(width_mbs=1, height_mbs=1, n_pictures=3, seed=44),
+    # shapes that stress the flags between MB rows
+    "one_col": dict(width_mbs=1, height_mbs=12, n_pictures=2, seed=45,
+                    mb_kinds=("i16", "i4")),
+    "one_row": dict(width_mbs=12, height_mbs=1, n_pictures=2, seed=46,
+                    mb_kinds=("i16", "i4")),
+    # every MB at a right edge: the wait target min(c + 2, wmb)
+    "right_edges": dict(width_mbs=2, height_mbs=9, n_pictures=2, seed=47,
+                        profile=100, transform_8x8=True,
+                        mb_kinds=("i16", "i4", "i8")),
+    "strip_slices": dict(width_mbs=120, height_mbs=3, n_pictures=2,
+                         seed=48, profile=100, transform_8x8=True,
+                         mb_kinds=("i16", "i4", "i8"), n_slices=3,
+                         allow_pcm=True),
+    # B * hmb = 4,800 rows, more than 132 SMs x 32 blocks can hold: the
+    # row tickets must not deadlock
+    "resident": dict(width_mbs=8, height_mbs=4, n_pictures=2, seed=49,
+                     mb_kinds=("i16", "i4")),
 }
+# access units of a stream repeated to a larger batch
+REPEAT = {"resident": 600}
 
 
 @pytest.fixture
@@ -34,6 +53,13 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+def _stream(name):
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    from minivideo_tpu_torch.testing.streams import repeat_pictures
+    data = make_stream(**STREAMS[name])
+    return repeat_pictures(data, REPEAT[name]) if name in REPEAT else data
 
 
 def _staging(data, device):
@@ -46,8 +72,7 @@ def _staging(data, device):
 def test_kernel_matches_plain(name, cuda):
     import torch
     from minivideo_tpu_torch.ops import recon_fused as tfused
-    from minivideo_tpu_torch.testing.h264enc import make_stream
-    packed, arrs = _staging(make_stream(**STREAMS[name]), cuda)
+    packed, arrs = _staging(_stream(name), cuda)
     args = (*arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb)
     kw = dict(has8x8=packed.has8x8, haspcm=packed.haspcm)
     got = tfused.wave_kernel_cuda(*args, **kw)
@@ -57,15 +82,27 @@ def test_kernel_matches_plain(name, cuda):
         assert torch.equal(g, w)
 
 
+def test_kernel_repeats_identical(cuda):
+    """20 launches on one input give identical planes: a race between
+    the rows' flags and their pixels would show as a difference."""
+    import torch
+    from minivideo_tpu_torch.ops import recon_fused as tfused
+    packed, arrs = _staging(_stream("strip_slices"), cuda)
+    args = (*arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb)
+    kw = dict(has8x8=packed.has8x8, haspcm=packed.haspcm)
+    first = tfused.wave_kernel_cuda(*args, **kw)
+    for _ in range(20):
+        got = tfused.wave_kernel_cuda(*args, **kw)
+        assert all(torch.equal(g, f) for g, f in zip(got, first))
+
+
 def test_decode_on_card_counts_launches(cuda):
     from minivideo_tpu_torch.models.h264 import decoder as tdec
     from minivideo_tpu_torch.ops import recon_fused as tfused
-    from minivideo_tpu_torch.ops.recon_wave import skew_tables
-    from minivideo_tpu_torch.testing.h264enc import make_stream
-    data = make_stream(**STREAMS["i8_slices"])
+    data = _stream("i8_slices")
     tfused.wave_kernel_cuda.launches = 0
     got = tdec.decode_annexb(data)
-    assert tfused.wave_kernel_cuda.launches == skew_tables(7, 5)["n_waves"]
+    assert tfused.wave_kernel_cuda.launches == 1      # one per batch
     want = tdec.decode_annexb(data, device="cpu")
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
@@ -76,8 +113,7 @@ def test_decode_on_card_counts_launches(cuda):
 def test_wrapper_rejects_bad_tensors(cuda):
     import torch
     from minivideo_tpu_torch.ops import recon_fused as tfused
-    from minivideo_tpu_torch.testing.h264enc import make_stream
-    packed, arrs = _staging(make_stream(**STREAMS["kinds_pcm"]), cuda)
+    packed, arrs = _staging(_stream("kinds_pcm"), cuda)
     meta, luma, chroma, dc = arrs
     rest = (packed.ls4, packed.ls8, packed.wmb, packed.hmb)
     with pytest.raises(TypeError):
@@ -88,3 +124,26 @@ def test_wrapper_rejects_bad_tensors(cuda):
     with pytest.raises(ValueError):
         tfused.wave_kernel_cuda(meta.transpose(2, 3).contiguous()
                                 .transpose(2, 3), luma, chroma, dc, *rest)
+
+
+def test_interleave_matches_plain_and_library(cuda):
+    import torch
+    from minivideo_tpu_torch.ops import interleave
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for B, wmb, hmb in ((3, 7, 5), (2, 120, 68), (1, 1, 1)):
+        tiles = torch.randint(0, 256, (B, wmb * hmb, 256), generator=gen,
+                              device=cuda, dtype=torch.uint8)
+        interleave.tiles_to_raster_cuda.launches = 0
+        got = interleave.tiles_to_raster_cuda(tiles, wmb, hmb)
+        assert interleave.tiles_to_raster_cuda.launches == 1
+        want = interleave.tiles_to_raster_plain(tiles, wmb, hmb)
+        lib = tiles.view(B, hmb, wmb, 16, 16).permute(
+            0, 1, 3, 2, 4).contiguous().view(B, 16 * hmb, 16 * wmb)
+        assert got.shape == (B, 16 * hmb, 16 * wmb)
+        assert torch.equal(got, want) and torch.equal(got, lib)
+    strided = torch.zeros((2, 35, 512), dtype=torch.uint8,
+                          device=cuda)[:, :, :256]
+    with pytest.raises(ValueError):
+        interleave.tiles_to_raster_cuda(strided, 7, 5)
+    with pytest.raises(TypeError):
+        interleave.tiles_to_raster_cuda(strided.int(), 7, 5)

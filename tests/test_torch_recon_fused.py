@@ -24,7 +24,8 @@ def _compare(data):
     from minivideo_tpu_torch.ops import recon_fused as tfused
     packed, _, _, _ = jax_packed(data)
     want = [np.asarray(a) for a in j_recon(packed, interpret=True)]
-    got = tfused.reconstruct_frames_fused(packed_from_numpy(packed))
+    got = tfused.reconstruct_frames_fused(
+        packed_from_numpy(packed, device="cpu"))
     assert all(g.dtype == torch.uint8 and g.device.type == "cpu"
                for g in got)
     assert_planes_equal(want, got, "fused vs JAX fused")
@@ -88,7 +89,7 @@ def test_fused_specialized_flags():
     want = [np.asarray(x) for x in fn(a["meta_slab"], a["luma_slab"],
                                       a["chroma_slab"], a["dc_slab"],
                                       packed.ls4, packed.ls8)]
-    tp = packed_from_numpy(packed)
+    tp = packed_from_numpy(packed, device="cpu")
     recon = tfused.make_reconstruct_fused_slots2(
         packed.wmb, packed.hmb, packed.batch, has8x8=False, haspcm=False)
     got = recon(*(tp.arrays[k] for k in ("meta_slab", "luma_slab",
@@ -144,9 +145,50 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     from minivideo_tpu_torch.ops import recon_fused as tfused
     packed, _, _, _ = jax_packed(make_stream(width_mbs=2, height_mbs=2,
                                              n_pictures=1, seed=1))
-    tp = packed_from_numpy(packed)
+    tp = packed_from_numpy(packed, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tfused.wave_kernel_cuda(
             *(tp.arrays[k] for k in ("meta_slab", "luma_slab",
                                      "chroma_slab", "dc_slab")),
             tp.ls4, tp.ls8, tp.wmb, tp.hmb)
+
+
+def test_entry_points_default_to_cuda():
+    """device=None asks for the GPU: packed_from_numpy and
+    reconstruct_frames_fused over numpy staging raise without one;
+    staging tensors that already lie on a device stay there."""
+    import torch
+    from minivideo_tpu_torch.convert import packed_from_numpy
+    from minivideo_tpu_torch.models.h264.decoder import stage_annexb
+    from minivideo_tpu_torch.ops import recon_fused as tfused
+    data = make_stream(width_mbs=3, height_mbs=2, n_pictures=1, seed=2)
+    jp, _, _, _ = jax_packed(data)
+    (_, tp, _), = stage_annexb(data, "cpu")       # numpy staging
+    assert isinstance(tp.arrays["meta_slab"], np.ndarray)
+    if torch.cuda.is_available():
+        assert packed_from_numpy(jp).arrays["meta_slab"].is_cuda
+        assert tfused.reconstruct_frames_fused(tp)[0].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            packed_from_numpy(jp)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tfused.reconstruct_frames_fused(tp)
+    on_cpu = packed_from_numpy(jp, device="cpu")
+    got = tfused.reconstruct_frames_fused(on_cpu)
+    assert all(g.device.type == "cpu" for g in got)
+
+
+def test_check_waits_raises_on_a_timed_out_wait():
+    """The wrapper's timeout check: an error word that the kernel set
+    (1, a wait for the row above timed out) raises, zero words pass, and
+    words left by check=False launches are checked once, then dropped."""
+    import torch
+    from minivideo_tpu_torch.ops import recon_fused as tfused
+    tfused.check_waits(torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="timed out"):
+        tfused.check_waits(torch.zeros(1, dtype=torch.int32),
+                           torch.ones(1, dtype=torch.int32))
+    tfused._unchecked.append(torch.ones(1, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="timed out"):
+        tfused.check_waits()
+    tfused.check_waits()
