@@ -35,6 +35,25 @@ Phases, each printing one line with its seconds:
                   torch.profiler device time of both kernels; the wave
                   kernel's times for one picture (B = 1); the bounds;
                   decode_annexb pictures/s with a host breakdown.
+  8. cabac      - a seeded 1080p CABAC stream of two IDR pictures (8x8,
+                  I_PCM) from the port's make_stream2, SHA-256 pinned,
+                  repeated to 16 pictures and decoded on the card: the
+                  JAX package's digests, one launch, and its host-clock
+                  breakdown and pictures/s.
+  9. staging    - the 1080p CAVLC batch through the three staging layouts
+                  (MINIVIDEO_TPU_STAGING=device and =records through
+                  decode_annexb; raster: the full native parse, pack_frames
+                  and reconstruct_batch), each giving the JAX digests with
+                  one launch; per layout parse s, h2d s and bytes, feed
+                  prep and kernel ms (CUDA events), pictures/s.  Then the
+                  four staging constants of minivideo_tpu_torch/settings.py
+                  measured on this host, and what "auto" picks.
+ 10. parsers    - small CAVLC and CABAC streams (8x8, I_PCM, 3 slices)
+                  decoded under MINIVIDEO_TPU_NO_NATIVE=1 (the Python
+                  parsers) equal the native parse's planes.
+ 11. bad slices - streams with bad IDR pictures (testing/streams.py
+                  BAD_STREAMS) give the JAX package's pictures, digests
+                  pinned, as the reference drops the bad ones.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -44,8 +63,10 @@ package.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -53,8 +74,11 @@ import sys
 import threading
 import time
 
-# the 1080p stream: make_stream(**STREAM_KW) from minivideo_tpu_torch.testing
+# the 1080p streams: make_stream(**STREAM_KW) and
+# make_stream2(**CABAC_KW) from minivideo_tpu_torch.testing
 from minivideo_tpu_torch.testing.streams import STREAM_1080P as STREAM_KW
+from minivideo_tpu_torch.testing.streams import \
+    STREAM_1080P_CABAC as CABAC_KW
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STREAM_SHA256 = ("f5ed8d3bf8a1157659e5466db616b279"
@@ -69,6 +93,47 @@ JAX_DIGESTS = [
      "b760a532bb780ed3afa4aa77995759ca419b3b2afd92a715a51e27032184f35b",
      "5f208c810cafa0b56004eb3dd83fae060dff5773d6bb84d26a966f76dcb28a1b"],
 ]
+CABAC_SHA256 = ("47abca06a9b44886bff5f606e8289eb7"
+                "45dee59302a2c5e819faca9a53355dc2")
+CABAC_DIGESTS = [
+    ["ee2f93b7dbd40d5c88ae0fecf937a55af18c8bc67b4283cba54cf523d7407141",
+     "6dd4725d5635ff57ac5214a96ef437b1a49060c7aa24ea8681193ebb79076a36",
+     "abb3b18eb746b571533a6741a138c60e4dbf3349ac734129320e71d424d1d2d7"],
+    ["b7288174c4c771a5d50ff377919850cc3b29bc89c696d23b4f6f70744f426b4c",
+     "1e039dacf90d6ab54992f0426bbb2a940ff3cfca462f73ddd9b42a71e7afb677",
+     "8dfaa6b9fffa8e9f628ed3aafdeb3ffc945fe7f039565503a2197b46f715bc5a"],
+]
+# per stream of testing/streams.BAD_STREAMS, the pictures the JAX package
+# returns (its decode_annexb, engine "fused" and "np" alike)
+BAD_DIGESTS = {
+    "truncated_idr": [
+        ["4585f2456e4245d38dc295f76f1f704c68ee5584f5fc98624c37b2483b2a401b",
+         "a4adb0c526cf577421ab84264ce61e4f350331e7e50e11a35d43571780dbf471",
+         "39ebe1e7c826135b04f861c8a0136fa712fe96fadbf92e2461e7560f4f3da271"],
+        ["9c67fb88d57fc5fad544ec879600d30b027d71819d82eedaa44047179a7053a3",
+         "f53cac44726c561118e86d2930191c696bd6546952593cbc108791cb4295a82f",
+         "f8727211baea0c68ffa14cd7b208e87ff9a1cbaf6de9a17f1470300614d5da76"],
+    ],
+    "joined_id0": [
+        ["f9fac68078d01dd07a913282edbed03b9a773fa7df0a0a3242a4022875e81486",
+         "d079942d349333abb83efca2a2e17442c867bdb1101e3efe254a7110d5f78ab4",
+         "e18e7add39cee15df7a86bc0791e3d09e626983900372ebf4e804e23bde6c09b"],
+        ["85853fe670f67e71a13008dc8b496a56ad317e18eb411978265ad6d26b33a4b4",
+         "5857fb600413b1de9acd015e73e392b9f96b0ae20e1cd75c60ef7b942ce699ad",
+         "63b8603d88fe40d67a2060001490b3c86ecd4a8bf684dfde7523e2db196c3e89"],
+    ],
+    "error_run": [
+        ["0c58623b0693357b722982fdca265fa36cb88479974a8809cf62844c81577d4d",
+         "b77cfdf8433b4fcdc6c850f7fdf2d2a913599f7de1fdd6f9e663e969c50fd002",
+         "4e2e97be6b376916bf98ef30d5cc3b04d7f337abf8fe312d36619a6b4b2a9a0c"],
+        ["a85453dfff9ab8e876bdc2ab824a8489cf5e09e08470afbed2b6879eb7aad8a0",
+         "76d25577c7badff709705031d2830fe9defc0d849b430491c4f339449c6953eb",
+         "0b1335202bbec4f1ccc846c3134d3718dc3e9f0867544cca7cba01df33aa0d2b"],
+        ["eb9c8ef757393ea1f893864e7cbf9e9aa35b41ebc0b62ddc3cfe70efc84402ef",
+         "2ec4e78ff82633759d9967e841992c3573765783505e4aaceb0e53a1f181ce74",
+         "2ec4e78ff82633759d9967e841992c3573765783505e4aaceb0e53a1f181ce74"],
+    ],
+}
 BATCH = 16
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peak
@@ -131,13 +196,40 @@ def profiled_kernel_ms(fn, name):
     return (us / 1e3, sum(e.count for e in events)) if us else None
 
 
-def staged(stream, device, pool=None):
-    """decode_annexb's front half for a one-part stream: (PackedFrames,
-    staging tensors on `device`, host-clock seconds of each step)."""
+def staged(stream, device, pool=None, mode="device"):
+    """decode_annexb's front half for a one-part stream in staging layout
+    `mode` (None: the one settings.staging_mode() picks): (PackedFrames
+    on `device`, its device-layout staging tensors where mode is
+    "device", host-clock seconds of each step)."""
     from minivideo_tpu_torch.models.h264.decoder import stage_annexb
+    from minivideo_tpu_torch.ops.recon_fused import DEVICE_STAGING
     secs = {}
-    (_, packed, arrs), = stage_annexb(stream, device, pool, secs)
+    (_, packed), = stage_annexb(stream, device, pool, secs, mode)
+    arrs = ([packed.arrays[k] for k in DEVICE_STAGING]
+            if packed.slots == 2 else None)
     return packed, arrs, secs
+
+
+def digests(pics):
+    return [[sha(p.y), sha(p.cb), sha(p.cr)] for p in pics]
+
+
+class env:
+    """Set environment variables for a `with` block, then restore them."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kw}
+        os.environ.update(self.kw)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 # bytes the wave kernel must move per MB (csrc/wave_kernel.cu, "Bound"):
@@ -211,6 +303,216 @@ def compare_kernel(packed, arrs):
     return max_err(got, want), got
 
 
+def breakdown(stream, dev, mode=None):
+    """Host-clock seconds of decode_annexb's front half by step (NALUs,
+    parse, h2d), median of 3, with the parse pool decode_annexb uses."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+        steps = [staged(stream, dev, pool, mode)[2] for _ in range(3)]
+    return {k: statistics.median(st[k] for st in steps) for k in steps[0]}
+
+
+def decode_counted(fn):
+    """(fn()'s result, wave kernel launches in that call): the count is set
+    to 0 just before and read just after."""
+    from minivideo_tpu_torch.ops import recon_fused
+    recon_fused.wave_kernel_cuda.launches = 0
+    out = fn()
+    return out, recon_fused.wave_kernel_cuda.launches
+
+
+def median_s(fn, reps=3):
+    import torch
+    walls = []
+    for _ in range(reps):
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t)
+    return statistics.median(walls)
+
+
+def phase_cabac(t0, dev, streams):
+    """The 1080p CABAC batch of 16 on the card against the JAX digests;
+    adds it to `streams` as "cabac"."""
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.testing.h264enc2 import make_stream2
+    from minivideo_tpu_torch.testing.streams import repeat_pictures
+    t = time.time()
+    data = make_stream2(**CABAC_KW)
+    digest = hashlib.sha256(data).hexdigest()
+    log("cabac", t0, f"1080p CABAC x2 encoded in {time.time() - t:.2f}s, "
+        f"{len(data)} bytes, sha256 {digest} "
+        + ("ok" if digest == CABAC_SHA256 else
+           f"MISMATCH (want {CABAC_SHA256})"))
+    if digest != CABAC_SHA256:
+        return False
+    stream = repeat_pictures(data, BATCH // 2)
+    streams["cabac"] = stream
+    t = time.time()
+    pics, launches = decode_counted(lambda: decode_annexb(stream))
+    first_s = time.time() - t
+    got = digests(pics)
+    want = [CABAC_DIGESTS[i % len(CABAC_DIGESTS)] for i in range(BATCH)]
+    ok = (got == want and launches == 1
+          and pics[0].y.shape == (1088, 1920))
+    e2e = median_s(lambda: decode_annexb(stream))
+    split = breakdown(stream, dev)
+    log("cabac", t0, f"decode_annexb: {len(pics)} pictures in "
+        f"{first_s:.3f}s, planes {'=' if got == want else '!='} JAX "
+        f"digests, wave_kernel launches {launches} (want 1 per batch); "
+        f"steps (host clock, s, median of 3): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"; decode_annexb {BATCH / e2e:.2f} pictures/s (median of 3, "
+        f"{e2e:.3f}s) " + ("ok" if ok else "FAILED"))
+    return ok
+
+
+def phase_staging(t0, dev, streams):
+    """The 1080p CAVLC and CABAC batches through the three staging
+    layouts, with their times, then the staging constants of settings.py
+    measured here on the CAVLC batch."""
+    import torch
+    from minivideo_tpu_torch import settings
+    from minivideo_tpu_torch.models.h264.decoder import (H264Decoder,
+                                                        decode_annexb,
+                                                        stage_annexb)
+    from minivideo_tpu_torch.ops import recon_fused
+    ok = True
+    fps = {}
+    runs = [(e, m) for e in ("cavlc", "cabac") if e in streams
+            for m in ("device", "records", "raster")]
+    for entropy, mode in runs:
+        stream = streams[entropy]
+        pinned = JAX_DIGESTS if entropy == "cavlc" else CABAC_DIGESTS
+        want = [pinned[i % len(pinned)] for i in range(BATCH)]
+        packed, _, _ = staged(stream, dev, None, mode)
+        split = breakdown(stream, dev, mode)
+        h2d_bytes = sum(a.numel() * a.element_size()
+                        for a in packed.arrays.values())
+        feeds = {"raster": recon_fused.raster_feeds,
+                 "records": recon_fused.records_feeds}.get(mode)
+        cq = packed.chroma_qp_off
+        if feeds is None:
+            arrs = [packed.arrays[k] for k in recon_fused.DEVICE_STAGING]
+            feed_ms = 0.0
+        else:
+            def prep():
+                return feeds(packed.arrays, *cq, packed.wmb, packed.hmb,
+                             packed.batch)
+            arrs = prep()
+            feed_ms = cuda_ms(prep, 5)
+        kernel_ms = cuda_ms(lambda: recon_fused.wave_kernel_cuda(
+            *arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb,
+            has8x8=packed.has8x8, haspcm=packed.haspcm, check=False), 10)
+        recon_fused.check_waits()
+        if mode == "raster":
+            def run():
+                (parsed, pk), = stage_annexb(stream, dev, staging_mode=mode)
+                return H264Decoder(device=dev).reconstruct_batch(parsed, pk)
+        else:
+            def run(mode=mode):
+                with env(MINIVIDEO_TPU_STAGING=mode):
+                    return decode_annexb(stream)
+        pics, launches = decode_counted(run)
+        good = digests(pics) == want and launches == 1
+        ok = ok and good
+        e2e = median_s(run)
+        fps[entropy, mode] = BATCH / e2e
+        log("staging", t0, f"{entropy} {mode}: parse {split['parse']:.4f}s, "
+            f"h2d {split['h2d']:.4f}s {h2d_bytes} bytes, feed prep "
+            f"{feed_ms:.3f} ms, kernel {kernel_ms:.3f} ms, e2e "
+            f"{BATCH / e2e:.2f} pictures/s (median of 3, {e2e:.3f}s); planes "
+            f"{'=' if digests(pics) == want else '!='} JAX digests, "
+            f"launches {launches} (want 1) " + ("ok" if good else "FAILED"))
+
+    # the staging constants: the native parse on one thread, and the
+    # card's drain (staging copy, feeds, kernel) over several batches
+    stream = streams["cavlc"]
+    consts = {}
+    for mode, tag in (("records", "RECORDS"), ("device", "DEVICE")):
+        parse = statistics.median(
+            staged(stream, dev, None, mode)[2]["parse"] for _ in range(3))
+        consts[f"HOST_MS_{tag}"] = parse / BATCH * 1e3
+        packed, _, _ = staged(stream, dev, None, mode)
+        host = dataclasses.replace(packed, arrays={
+            k: v.cpu().numpy() for k, v in packed.arrays.items()})
+        reps = 5
+        recon_fused.reconstruct_frames_fused(host, dev)
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(reps):
+            recon_fused.reconstruct_frames_fused(host, dev)
+        torch.cuda.synchronize()
+        consts[f"DEVICE_FPS_{tag}"] = BATCH * reps / (time.time() - t)
+    cores = os.cpu_count()
+    for k, v in consts.items():
+        log("staging", t0, f"{k} = {v!r}")
+    log("staging", t0, f"os.cpu_count() = {cores}")
+    cross = max(1, math.floor(consts["DEVICE_FPS_RECORDS"]
+                              * consts["HOST_MS_DEVICE"] / 1000.0) + 1)
+    measured_pick = "device" if cores >= cross else "records"
+    with env(MINIVIDEO_TPU_STAGING="auto"):
+        auto = settings.staging_mode()
+    faster = max(("device", "records"), key=lambda m: fps["cavlc", m])
+    log("staging", t0, f"auto picks {auto} with settings.py's constants "
+        f"(crossover {settings.staging_crossover_cores()} cores), "
+        f"{measured_pick} with this run's (crossover {cross} cores); "
+        f"measured faster here: {faster}")
+    return ok
+
+
+# small streams for the Python parsers: 8x8 transforms, I_PCM, 3 slices
+PARSER_STREAMS = {
+    "cavlc": dict(width_mbs=6, height_mbs=4, n_pictures=2, seed=21,
+                  profile=100, transform_8x8=True,
+                  mb_kinds=("i16", "i4", "i8"), n_slices=3, allow_pcm=True),
+    "cabac": dict(width_mbs=6, height_mbs=4, n_pictures=2, seed=22,
+                  entropy="cabac", transform_8x8=True,
+                  mb_kinds=("i16", "i4", "i8"), n_slices=3, allow_pcm=True),
+}
+
+
+def phase_parsers(t0, dev, streams):
+    """MINIVIDEO_TPU_NO_NATIVE=1 decodes equal the native parse's."""
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    from minivideo_tpu_torch.testing.h264enc2 import make_stream2
+    ok = True
+    for name, kw in PARSER_STREAMS.items():
+        data = (make_stream2 if name == "cabac" else make_stream)(**kw)
+        native = digests(decode_annexb(data))
+        with env(MINIVIDEO_TPU_NO_NATIVE="1"):
+            pics, launches = decode_counted(lambda: decode_annexb(data))
+        good = (digests(pics) == native and launches == 1
+                and len(pics) == kw["n_pictures"])
+        ok = ok and good
+        log("parsers", t0, f"{name}: Python parser {len(pics)} pictures, "
+            f"planes {'=' if digests(pics) == native else '!='} native "
+            f"parse's, launches {launches} (want 1) "
+            + ("ok" if good else "FAILED"))
+    return ok
+
+
+def phase_bad_slices(t0, dev, streams):
+    """Streams with bad IDR pictures give the JAX package's pictures."""
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    from minivideo_tpu_torch.testing.streams import BAD_STREAMS, bad_stream
+    ok = True
+    for name in BAD_STREAMS:
+        data = bad_stream(name, make_stream)
+        pics, launches = decode_counted(lambda: decode_annexb(data))
+        got = digests(pics)
+        good = got == BAD_DIGESTS[name] and launches == 1
+        ok = ok and good
+        log("bad slices", t0, f"{name}: {len(pics)} pictures (JAX package: "
+            f"{len(BAD_DIGESTS[name])}), planes "
+            f"{'=' if got == BAD_DIGESTS[name] else '!='} JAX digests, "
+            f"launches {launches} (want 1) " + ("ok" if good else "FAILED"))
+    return ok
+
+
 def main():
     t0 = time.time()
     failed = []
@@ -230,6 +532,7 @@ def main():
     from minivideo_tpu_torch import native
     from minivideo_tpu_torch.models.h264.decoder import decode_annexb
     from minivideo_tpu_torch.ops import interleave, kernels, recon_fused
+    from minivideo_tpu_torch.settings import staging_mode
     from minivideo_tpu_torch.testing.h264enc import make_stream
     from minivideo_tpu_torch.testing.streams import repeat_pictures
     dev = torch.device("cuda")
@@ -403,11 +706,9 @@ def main():
         decode_annexb(stream)
         walls.append(time.time() - t)
     e2e_med = statistics.median(walls)
-    # host-clock breakdown of one decode_annexb batch, step by step
-    from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
-        steps = [staged(stream, dev, pool)[2] for _ in range(3)]
-    split = {k: statistics.median(st[k] for st in steps) for k in steps[0]}
+    # host-clock breakdown of one decode_annexb batch, step by step, in
+    # the staging layout that decode_annexb picks
+    split = breakdown(stream, dev)
     # host time to enqueue the batch's launch (no sync)
     enqueue = []
     for _ in range(TIMED_RUNS):
@@ -423,7 +724,8 @@ def main():
     [p.cpu() for p in planes]
     split["d2h"] = time.time() - t
     split["kernel"] = kernel_ms / 1e3
-    log("timing", t0, "decode_annexb steps (host clock, s, median of 3): "
+    log("timing", t0, f"decode_annexb steps ({staging_mode()} staging, "
+        f"host clock, s, median of 3): "
         + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     log("timing", t0, f"per 1080p batch of {BATCH}: wave_kernel "
         f"{kernel_ms:.3f} ms (B=1: {kernel1_ms:.3f} ms, "
@@ -433,6 +735,15 @@ def main():
         f"{il_plain_ms:.4f} ms, permute().contiguous() {il_lib_ms:.4f} ms, "
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
+
+    # ---- 8.-11. CABAC, staging layouts, Python parsers, bad slices --------
+    streams = {"cavlc": stream}            # the 1080p batches of 16
+    for name, phase in (("cabac", phase_cabac), ("staging", phase_staging),
+                        ("parsers", phase_parsers),
+                        ("bad slices", phase_bad_slices)):
+        if not phase(t0, dev, streams):
+            failed.append(name)
+
     print(json.dumps({"kernels": [
         {"name": "wave_kernel", "route": "cuda",
          "source": "minivideo_tpu_torch/ops/csrc/wave_kernel.cu",
@@ -450,6 +761,7 @@ def main():
     print(json.dumps({"e2e_pictures_per_s": BATCH / e2e_med,
                       "batch": BATCH, "wave_kernel_b1_ms": kernel1_ms,
                       "card": card}))
+    log("total", t0, "command time")
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

@@ -2,10 +2,14 @@
 
 Port of minivideo_tpu/models/h264/decoder.py for the fused engine:
 parameter sets and slice headers are parsed on the host, every IDR
-picture is entropy-parsed by the native parser into device-layout slab
-staging, and each group of pictures sharing an SPS/PPS is reconstructed
-in one batch by ops/recon_fused (the CUDA kernel on a GPU, its plain
-PyTorch version on the CPU).
+picture is entropy-parsed by the native parser into slab staging (the
+records or the device layout, settings.staging_mode) and each group of
+pictures sharing an SPS/PPS is reconstructed in one batch by
+ops/recon_fused (the CUDA kernel on a GPU, its plain PyTorch version on
+the CPU).  Under MINIVIDEO_TPU_NO_NATIVE=1 the Python CAVLC/CABAC parsers
+fill raster staging instead; a part whose slab parse fails is parsed
+again picture by picture into raster staging, dropping the pictures that
+fail, as the reference drops bad IDR pictures.
 
 Reference: h264_decode (minivideo/src/decoder/h264/h264.c:41-206) — NALU
 loop dispatching on nal_unit_type {5 IDR, 6 SEI, 7 SPS, 8 PPS}, with its
@@ -25,15 +29,18 @@ import torch
 from ... import trace
 from ...bitio import BitReader, BitstreamError
 from ...device import resolve_device
-from ...native import parse_slice_native_slab2
-from ...ops.recon import make_slab_staging2, pack_frames_slots2
-from ...ops.recon_fused import (make_reconstruct_fused_slots2,
-                                 staging_tensors)
+from ...native import (parse_slice_native, parse_slice_native_slab,
+                       parse_slice_native_slab2)
+from ...ops.recon import (make_slab_staging, make_slab_staging2,
+                          pack_frames, pack_frames_slots, pack_frames_slots2)
+from ...ops.recon_fused import reconstruct_frames_fused, to_device
+from ...settings import staging_mode as _staging_mode
+from .cabac import CabacSliceParser
 from .expgolomb import read_ue
 from .nalu import Nalu, NaluType, parse_nalu, split_annexb
 from .params import UnsupportedStream, parse_pps, parse_sei, parse_sps
 from .slicehdr import parse_slice_header
-from .syntax import FrameSyntax
+from .syntax import CavlcSliceParser, FrameSyntax
 
 MAX_CONSECUTIVE_ERRORS = 64  # reference: h264.c:181-187
 
@@ -94,11 +101,7 @@ class H264Decoder:
             parse_sei(nalu.rbsp)
             return None
         if t == NaluType.SLICE_IDR:
-            sh, sps, pps = parse_slice_header(
-                nalu.rbsp, nalu.nal_unit_type, nalu.nal_ref_idc,
-                self.sps_map, self.pps_map)
-            return self.reconstruct_batch(
-                *self.stage_groups([[nalu]], sps, pps))[0]
+            return self.reconstruct_batch([self.parse_idr_syntax([nalu])])[0]
         if t == NaluType.SLICE:
             trace.t1("H264", "skipping non-IDR slice NALU")
             return None
@@ -109,25 +112,82 @@ class H264Decoder:
 
     # -- picture decoding ----------------------------------------------------
 
-    def parse_groups_slab(self, groups, sps, pps, pool=None):
-        """Entropy-parse many pictures straight into device-layout slab
-        staging (native parser).  groups: list of NALU lists, all sharing
-        sps/pps.  `pool` (optional ThreadPoolExecutor) parses every
-        (picture, slice) task concurrently: slices are
-        entropy-independent and the native parse releases the GIL.
+    def parse_idr_syntax(self, nalus) -> tuple:
+        """Entropy-decode the slices of one IDR picture into a (full)
+        FrameSyntax.  `nalus` is a list of SLICE_IDR Nalu objects covering
+        the picture.  Returns (FrameSyntax, SPS, PPS, slice_of_mb)."""
+        fs = None
+        sps = pps = None
+        slice_of_mb = None
+        for snum, nalu in enumerate(nalus):
+            sh, sps, pps = parse_slice_header(
+                nalu.rbsp, nalu.nal_unit_type, nalu.nal_ref_idc,
+                self.sps_map, self.pps_map)
+            if fs is None:
+                fs = FrameSyntax(sps.pic_width_in_mbs,
+                                 sps.pic_height_in_map_units)
+                slice_of_mb = np.full(fs.n_mbs, -1, dtype=np.int32)
+            n = self._parse_slice(nalu, sh, sps, pps, fs)
+            slice_of_mb[sh.first_mb_in_slice:sh.first_mb_in_slice + n] = snum
+            trace.t1("SLICE", "decoded slice: %d MBs from %d",
+                     n, sh.first_mb_in_slice)
+        return fs, sps, pps, slice_of_mb
+
+    def _parse_slice(self, nalu, sh, sps, pps, fs):
+        """Entropy-decode one slice into fs: the native raster parse, or
+        the Python parsers under MINIVIDEO_TPU_NO_NATIVE=1."""
+        if os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1":
+            return parse_slice_native(
+                fs, nalu.rbsp, sh.data_bit_offset,
+                sh.first_mb_in_slice, sh.qp,
+                bool(pps.entropy_coding_mode_flag),
+                bool(pps.transform_8x8_mode_flag))
+        if pps.entropy_coding_mode_flag:
+            parser = CabacSliceParser(nalu.rbsp, sh, sps, pps, fs)
+        else:
+            r = BitReader(nalu.rbsp, start_bit=sh.data_bit_offset)
+            parser = CavlcSliceParser(r, sh, sps, pps, fs)
+        return parser.parse_slice_data()
+
+    def parse_groups_slab(self, groups, sps, pps, staging_mode=None,
+                          pool=None):
+        """Entropy-parse many pictures straight into slab staging with the
+        native parser, on the host only.  groups: list of NALU lists, all
+        sharing sps/pps.
+
+        Two staging layouts, chosen by settings.staging_mode():
+          "records" - slot records: the parser's host writes are cheaper,
+            the card builds the meta rows and transposes the slabs
+            (ops/slab.py feeds);
+          "device" - the kernel's own layout [B, W, S, maxw] with the meta
+            rows, written by the parser; the card only receives it.
+
+        `pool` (optional ThreadPoolExecutor) parses every (picture, slice)
+        task concurrently: slices are entropy-independent and the native
+        parse releases the GIL.
         Returns (PackedFrames, [(FrameSyntax, slice_of_mb), ...])."""
+        mode = staging_mode or _staging_mode()
         wmb = sps.pic_width_in_mbs
         hmb = sps.pic_height_in_map_units
-        staging = make_slab_staging2(wmb, hmb, len(groups))
+        if mode == "device":
+            staging = make_slab_staging2(wmb, hmb, len(groups))
+        else:
+            staging = make_slab_staging(wmb, hmb, len(groups))
 
         def parse_one(i, fs, sh, nalu):
-            return parse_slice_native_slab2(
+            if mode == "device":
+                return parse_slice_native_slab2(
+                    fs, staging, i, nalu.rbsp, sh.data_bit_offset,
+                    sh.first_mb_in_slice, sh.qp,
+                    bool(pps.entropy_coding_mode_flag),
+                    bool(pps.transform_8x8_mode_flag),
+                    cb_qp_off=pps.chroma_qp_index_offset,
+                    cr_qp_off=pps.second_chroma_qp_index_offset)
+            return parse_slice_native_slab(
                 fs, staging, i, nalu.rbsp, sh.data_bit_offset,
                 sh.first_mb_in_slice, sh.qp,
                 bool(pps.entropy_coding_mode_flag),
-                bool(pps.transform_8x8_mode_flag),
-                cb_qp_off=pps.chroma_qp_index_offset,
-                cr_qp_off=pps.second_chroma_qp_index_offset)
+                bool(pps.transform_8x8_mode_flag))
 
         frames = []
         tasks = []                # (future, slice_of_mb, snum, first_mb)
@@ -150,36 +210,49 @@ class H264Decoder:
         for fut, slice_of_mb, snum, first_mb in tasks:
             n = fut.result()
             slice_of_mb[first_mb:first_mb + n] = snum
-        return pack_frames_slots2(staging, sps, pps), frames
+        if mode == "device":
+            return pack_frames_slots2(staging, sps, pps), frames
+        return pack_frames_slots(staging, frames, sps, pps), frames
 
-    def stage_groups(self, groups, sps, pps, pool=None, timings=None):
-        """Parse pictures sharing sps/pps into slab staging and copy it to
-        the decoder's device.  Returns (parsed_groups, PackedFrames,
-        staging tensors), the arguments of reconstruct_batch.  `timings`
-        (optional dict) receives the host seconds of "parse" and "h2d"."""
+    def stage_groups(self, groups, sps, pps, pool=None, timings=None,
+                     staging_mode=None):
+        """Parse pictures sharing sps/pps into staging and copy it to the
+        decoder's device.  `staging_mode`: "records" or "device" (slab
+        staging, parse_groups_slab; default settings.staging_mode()), or
+        "raster" (parse_idr_syntax per picture, then pack_frames).
+        Returns (parsed_groups, PackedFrames with its arrays as tensors
+        there), the arguments of reconstruct_batch.  `timings` (optional
+        dict) receives the host seconds of "parse" and "h2d"."""
         t = time.perf_counter()
-        packed, frames = self.parse_groups_slab(groups, sps, pps, pool=pool)
+        if staging_mode == "raster":
+            parsed = [self.parse_idr_syntax(g) for g in groups]
+            packed = pack_frames([(fs, som) for fs, _, _, som in parsed],
+                                 sps, pps)
+        else:
+            packed, frames = self.parse_groups_slab(groups, sps, pps,
+                                                    staging_mode, pool)
+            parsed = [(fs, sps, pps, som) for fs, som in frames]
         t1 = time.perf_counter()
-        arrays = staging_tensors(packed, self.device)
+        packed = to_device(packed, self.device)
         if timings is not None:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             timings["parse"] = t1 - t
             timings["h2d"] = time.perf_counter() - t1
-        parsed = [(fs, sps, pps, som) for fs, som in frames]
-        return parsed, packed, arrays
+        return parsed, packed
 
-    def reconstruct_batch(self, parsed_groups, packed, arrays):
+    def reconstruct_batch(self, parsed_groups, packed=None):
         """Reconstruct MANY parsed pictures in one engine batch on the
         decoder's device.  parsed_groups: list of (fs, sps, pps,
-        slice_of_mb) sharing one SPS/PPS; packed: their slab staging;
-        arrays: its tensors on the device (stage_groups)."""
-        _, sps, _, _ = parsed_groups[0]
-        recon = make_reconstruct_fused_slots2(
-            packed.wmb, packed.hmb, packed.batch, packed.has8x8,
-            packed.haspcm)
-        yb, cbb, crb = (p.cpu().numpy()
-                        for p in recon(*arrays, packed.ls4, packed.ls8))
+        slice_of_mb) sharing one SPS/PPS; `packed` may be their prebuilt
+        slab staging (parse_groups_slab or stage_groups), else they are
+        packed in raster staging."""
+        _, sps, pps, _ = parsed_groups[0]
+        if packed is None:
+            packed = pack_frames([(fs, som) for fs, _, _, som
+                                  in parsed_groups], sps, pps)
+        yb, cbb, crb = (p.cpu().numpy() for p in
+                        reconstruct_frames_fused(packed, self.device))
         pics = []
         for i, (fs, _, _, _) in enumerate(parsed_groups):
             pics.append(DecodedPicture(
@@ -192,9 +265,9 @@ class H264Decoder:
 
 def _partition(dec, group_iter, max_pictures, errors):
     """Partition consecutive picture groups by their (SPS, PPS)
-    configuration, peeked from the first slice header of each group;
-    returns [(sps, pps, groups), ...] holding at most max_pictures
-    pictures (0: all)."""
+    configuration, peeked from the first slice header of each group.
+    Returns ([(sps, pps, groups), ...] holding at most max_pictures
+    pictures (0: all), the error count)."""
     parts = []
     for group in group_iter:
         try:
@@ -221,33 +294,60 @@ def _partition(dec, group_iter, max_pictures, errors):
                 del parts[k + 1:]
                 break
             total += len(groups)
-    return parts
+    return parts, errors
 
 
 def _decode_batched(dec, group_iter, max_pictures, errors):
     """The decode path: entropy-parse every selected picture first, then
     reconstruct groups sharing an SPS/PPS configuration in ONE engine
     batch."""
-    parts = _partition(dec, group_iter, max_pictures, errors)
+    use_slab = os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1"
+    parts, errors = _partition(dec, group_iter, max_pictures, errors)
     pictures = []
     pool = None
-    if (os.cpu_count() or 1) > 1:
+    if use_slab and (os.cpu_count() or 1) > 1:
         pool = ThreadPoolExecutor(max_workers=os.cpu_count())
     try:
-        _decode_batched_parts(dec, parts, pictures, pool)
+        _decode_batched_parts(dec, parts, pictures, pool, use_slab, errors)
     finally:
         if pool is not None:
             pool.shutdown()
     return pictures
 
 
-def _decode_batched_parts(dec, parts, pictures, pool):
-    """Parse and reconstruct each (SPS, PPS) part as one batch.  A slab
-    parse failure raises (the JAX package's raster fallback is not part
-    of the port)."""
+def _decode_batched_parts(dec, parts, pictures, pool, use_slab, errors):
+    """Parse and reconstruct each (SPS, PPS) part as one batch.  Where the
+    slab parse of a part fails, its pictures are parsed again one by one
+    into raster staging, and those that fail are dropped, counted as
+    errors (reference: h264.c:181-187).  Only the host parse is inside a
+    `try`: the staging copy and the reconstruction raise."""
     for sps, pps, groups in parts:
-        pictures.extend(dec.reconstruct_batch(
-            *dec.stage_groups(groups, sps, pps, pool=pool)))
+        packed = None
+        parsed = None
+        if use_slab:
+            try:
+                packed, frames = dec.parse_groups_slab(groups, sps, pps,
+                                                       pool=pool)
+                parsed = [(fs, sps, pps, som) for fs, som in frames]
+            except (RuntimeError, ValueError, BitstreamError) as e:
+                trace.warning("H264", "slab parse failed (%s); "
+                              "falling back to raster", e)
+                packed = None
+        if packed is None:
+            parsed = []
+            for group in groups:
+                try:
+                    parsed.append(dec.parse_idr_syntax(group))
+                except UnsupportedStream:
+                    raise
+                except (ValueError, BitstreamError) as e:
+                    trace.warning("H264", "IDR parse error: %s", e)
+                    errors += 1
+                    if errors > MAX_CONSECUTIVE_ERRORS:
+                        break
+            if not parsed:
+                continue
+        pictures.extend(dec.reconstruct_batch(parsed, packed=packed))
 
 
 def group_idr_access_units(nalus):
@@ -300,19 +400,21 @@ def _open_stream(data: bytes, engine: str, device):
     return dec, idr_groups, errors
 
 
-def stage_annexb(data: bytes, device=None, pool=None, timings=None):
+def stage_annexb(data: bytes, device=None, pool=None, timings=None,
+                 staging_mode=None):
     """The front half of decode_annexb: every IDR picture of `data`
-    parsed into slab staging on `device`, one batch per (SPS, PPS) part.
-    Returns [(parsed_groups, PackedFrames, staging tensors), ...], the
-    arguments of H264Decoder.reconstruct_batch, the back half.  `timings`
-    (optional dict) receives the host seconds of "nalu" and, for the
-    last part, "parse" and "h2d"."""
+    parsed into staging (`staging_mode`, see H264Decoder.stage_groups) on
+    `device`, one batch per (SPS, PPS) part.
+    Returns [(parsed_groups, PackedFrames), ...], the arguments of
+    H264Decoder.reconstruct_batch, the back half.  `timings` (optional
+    dict) receives the host seconds of "nalu" and, for the last part,
+    "parse" and "h2d"."""
     t = time.perf_counter()
     dec, groups, errors = _open_stream(data, "fused", device)
-    parts = _partition(dec, iter(groups), 0, errors)
+    parts, _ = _partition(dec, iter(groups), 0, errors)
     if timings is not None:
         timings["nalu"] = time.perf_counter() - t
-    return [dec.stage_groups(g, sps, pps, pool, timings)
+    return [dec.stage_groups(g, sps, pps, pool, timings, staging_mode)
             for sps, pps, g in parts]
 
 

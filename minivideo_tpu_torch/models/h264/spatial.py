@@ -1,16 +1,15 @@
-"""Spatial neighbour derivations (spec 6.4) and intra mode prediction
-(spec 8.3.1.1 / 8.3.2.1) for the fixture encoder.
+"""Spatial neighbor derivations for macroblocks and sub-blocks (spec 6.4).
 
-Copies of minivideo_tpu/models/h264/spatial.py and of `IntraModeResolver`
-from minivideo_tpu/models/h264/syntax.py: the encoder mirrors the
-decoder's mode-prediction state to choose its prev_intra_pred_mode codes.
+Reference: minivideo/src/decoder/h264/h264_spatial.c — MB neighbor
+availability (:333-428), 4x4 luma / chroma block neighbor derivations
+(:461-841).  All functions are host-side scalar logic used during the
+entropy-parse phase; reconstruction-time neighbor access is handled by the
+device wavefront kernels instead.
 """
 
 from __future__ import annotations
 
-from ..models.h264.syntax import (KIND_I4x4, KIND_I8x8, MODE_DC,
-                                  FrameSyntax)
-from ..models.h264.tables import BLK4x4_POS
+from .tables import BLK4x4_POS
 
 # neighbor identifiers
 A = 0  # left
@@ -107,69 +106,3 @@ def chroma4x4_neighbor(mb_addr: int, blk_idx: int, which: int,
             return -1, -1
         return mb_b, (((yn + 8) // 4) * 2 + xn // 4)
     return mb_addr, ((yn // 4) * 2 + xn // 4)
-
-
-class IntraModeResolver:
-    """Shared mode-prediction logic (spec 8.3.1.1 / 8.3.2.1) used by both
-    entropy coders."""
-
-    def __init__(self, fs: FrameSyntax, first_mb: int,
-                 constrained_intra: bool):
-        self.fs = fs
-        self.first_mb = first_mb
-
-    def _mxm_mode(self, mb_n: int, kind_needed: int, blk_n: int,
-                  is8x8_blk: bool) -> int:
-        fs = self.fs
-        if mb_n < 0 or not fs.parsed[mb_n]:
-            return -1  # unavailable
-        k = fs.mb_kind[mb_n]
-        if k == KIND_I4x4:
-            idx = blk_n if not is8x8_blk else None
-            return int(fs.luma4x4_modes[mb_n, idx])
-        if k == KIND_I8x8:
-            return int(fs.luma8x8_modes[mb_n, blk_n])
-        return MODE_DC  # I16x16 / IPCM neighbors predict DC
-
-    def predicted_4x4_mode(self, mb_addr: int, blk: int) -> int:
-        fs = self.fs
-        preds = []
-        for which in (A, B):
-            mb_n, blk_n = luma4x4_neighbor(mb_addr, blk, which,
-                                           fs.width_mbs, self.first_mb)
-            if mb_n < 0:
-                preds.append(-1)
-                continue
-            k = fs.mb_kind[mb_n]
-            if k == KIND_I4x4:
-                preds.append(int(fs.luma4x4_modes[mb_n, blk_n]))
-            elif k == KIND_I8x8:
-                preds.append(int(fs.luma8x8_modes[mb_n, blk_n >> 2]))
-            else:
-                preds.append(MODE_DC)
-        ma, mb = preds
-        if ma < 0 or mb < 0:
-            return MODE_DC
-        return min(ma, mb)
-
-    def predicted_8x8_mode(self, mb_addr: int, blk8: int) -> int:
-        fs = self.fs
-        preds = []
-        for which in (A, B):
-            mb_n, blk_n = luma8x8_neighbor(mb_addr, blk8, which,
-                                           fs.width_mbs, self.first_mb)
-            if mb_n < 0:
-                preds.append(-1)
-                continue
-            k = fs.mb_kind[mb_n]
-            if k == KIND_I8x8:
-                preds.append(int(fs.luma8x8_modes[mb_n, blk_n]))
-            elif k == KIND_I4x4:
-                n = 1 if which == A else 2
-                preds.append(int(fs.luma4x4_modes[mb_n, blk_n * 4 + n]))
-            else:
-                preds.append(MODE_DC)
-        ma, mb = preds
-        if ma < 0 or mb < 0:
-            return MODE_DC
-        return min(ma, mb)

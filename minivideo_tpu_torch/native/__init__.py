@@ -2,9 +2,11 @@
 
 The library is built from the sources in this package at first use
 (`g++ -O3 -fPIC -shared -std=c++17 -pthread`, see _build.py) and loaded
-from the package's ignored build directory; a failed build raises.  Only
-the device-layout slab parse (`mv_parse_slice_slab2`) is bound: it fills
-the lite FrameSyntax arrays and the fused engine's per-wave feeds.
+from the package's ignored build directory; a failed build raises.  Three
+parses are bound, one per staging layout of ops/recon.py:
+`parse_slice_native` (raster: the full FrameSyntax arrays, a drop-in for
+the Python parsers), `parse_slice_native_slab` (slot records) and
+`parse_slice_native_slab2` (device layout, with the meta rows).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 
 from .._build import build_shared
 from ..bitio import BitstreamError
+from ..models.h264.syntax import KIND_IPCM
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
                     "entropy.cc")
@@ -38,6 +41,20 @@ def load():
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(build())
+    lib.mv_parse_slice.restype = ctypes.c_int64
+    lib.mv_parse_slice.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_void_p),
+    ]
+    lib.mv_parse_slice_slab.restype = ctypes.c_int64
+    lib.mv_parse_slice_slab.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_void_p),
+    ]
     lib.mv_parse_slice_slab2.restype = ctypes.c_int64
     lib.mv_parse_slice_slab2.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
@@ -58,6 +75,72 @@ _FIELDS = ("mb_kind", "qpy", "i16_mode", "chroma_mode", "luma4x4_modes",
            "cbf_chroma_dc", "cbf_chroma", "transform8x8", "parsed")
 
 
+def _field_bufs(fs, extra: int):
+    """ctypes pointer array over fs's _FIELDS buffers, with `extra` slots
+    left for the staging pointers."""
+    bufs = (ctypes.c_void_p * (len(_FIELDS) + extra))()
+    for j, name in enumerate(_FIELDS):
+        arr = getattr(fs, name)
+        assert isinstance(arr, np.ndarray) and arr.flags["C_CONTIGUOUS"]
+        bufs[j] = arr.ctypes.data_as(ctypes.c_void_p).value
+    return bufs
+
+
+def parse_slice_native(fs, rbsp: bytes, data_bit_offset: int,
+                       first_mb: int, slice_qp: int, entropy_cabac: bool,
+                       transform8x8_mode: bool) -> int:
+    """Parse one I slice into the (full, not lite) FrameSyntax `fs`, as
+    the Python parsers do.  Returns the slice's MB count; raises
+    BitstreamError on a parse error, like the Python parsers, so the
+    decoder's error count treats both alike."""
+    lib = load()
+    assert not fs.lite, "the raster parse needs full coefficient buffers"
+    bufs = _field_bufs(fs, 0)
+    n = lib.mv_parse_slice(
+        rbsp, len(rbsp), data_bit_offset,
+        fs.width_mbs, fs.height_mbs, first_mb, slice_qp,
+        1 if entropy_cabac else 0, 1 if transform8x8_mode else 0, bufs)
+    if n < 0:
+        raise BitstreamError(f"native slice parse failed (code {n})")
+    # I_PCM macroblocks: the parser stored their raw samples in the
+    # coefficient buffers; mirror them into the FrameSyntax dicts, where
+    # the Python parsers put them
+    for mb in np.nonzero(fs.mb_kind == KIND_IPCM)[0]:
+        mb = int(mb)
+        if mb in fs.pcm_y:
+            continue
+        fs.pcm_y[mb] = fs.luma_ac[mb].reshape(16, 16).astype(np.uint8)
+        c = fs.chroma_ac[mb].reshape(2, 8, 8).astype(np.uint8)
+        fs.pcm_cb[mb] = c[0]
+        fs.pcm_cr[mb] = c[1]
+    return int(n)
+
+
+def parse_slice_native_slab(fs, slabs, i: int, rbsp: bytes,
+                            data_bit_offset: int, first_mb: int,
+                            slice_qp: int, entropy_cabac: bool,
+                            transform8x8_mode: bool) -> int:
+    """Slot-record parse of one I slice: coefficients land in `slabs`
+    (ops.recon.make_slab_staging) at batch row `i` as int16 records in
+    skew-slot order, and the per-MB metadata fills the lite `fs`.
+    Returns the slice's MB count; raises BitstreamError on a parse
+    error."""
+    lib = load()
+    bufs = _field_bufs(fs, 3)
+    for j, name in enumerate(("luma_slab", "chroma_slab", "dc_slab")):
+        arr = slabs[name][i]
+        assert arr.dtype == np.int16 and arr.flags["C_CONTIGUOUS"]
+        bufs[len(_FIELDS) + j] = arr.ctypes.data_as(ctypes.c_void_p).value
+    n = lib.mv_parse_slice_slab(
+        rbsp, len(rbsp), data_bit_offset,
+        fs.width_mbs, fs.height_mbs, first_mb, slice_qp,
+        1 if entropy_cabac else 0, 1 if transform8x8_mode else 0,
+        slabs["maxw"], bufs)
+    if n < 0:
+        raise BitstreamError(f"native slab slice parse failed (code {n})")
+    return int(n)
+
+
 def parse_slice_native_slab2(fs, slabs, i: int, rbsp: bytes,
                              data_bit_offset: int, first_mb: int,
                              slice_qp: int, entropy_cabac: bool,
@@ -70,11 +153,7 @@ def parse_slice_native_slab2(fs, slabs, i: int, rbsp: bytes,
     [W, 40, maxw] int32.  Returns the slice's MB count; raises
     BitstreamError on a parse error."""
     lib = load()
-    bufs = (ctypes.c_void_p * (len(_FIELDS) + 4))()
-    for j, name in enumerate(_FIELDS):
-        arr = getattr(fs, name)
-        assert isinstance(arr, np.ndarray) and arr.flags["C_CONTIGUOUS"]
-        bufs[j] = arr.ctypes.data_as(ctypes.c_void_p).value
+    bufs = _field_bufs(fs, 4)
     for j, name in enumerate(("luma_slab", "chroma_slab", "dc_slab",
                               "meta_slab")):
         arr = slabs[name][i]

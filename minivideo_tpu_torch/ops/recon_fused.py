@@ -16,13 +16,17 @@ kernel `_wave_kernel` live here:
     `unskew_fused`.  It runs for tensors on the CPU, and on the card only
     where a test or chip_smoke.py compares the kernel with it.
 
-`reconstruct_frames_fused` dispatches on the device of the staging
-tensors: a CUDA tensor launches the kernel or raises; there is no
-fallback from one version to the other.
+Both read the device-layout staging [B, W, S, maxw].  The raster and
+slot-record layouts reach it through `raster_feeds` / `records_feeds`
+(ops/slab.py's feeds, torch ops on the staging's device), so
+`reconstruct_frames_fused` dispatches on `packed.slots` first and then on
+the device of the staging tensors: a CUDA tensor launches the kernel or
+raises; there is no fallback from one version to the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -326,24 +330,90 @@ def make_reconstruct_fused_slots2(wmb: int, hmb: int, batch: int,
     return recon
 
 
-def staging_tensors(packed: PackedFrames, device=None):
-    """The four device-layout staging arrays of `packed` as tensors on
-    `device`, in the order the reconstructors take them.  device=None
-    leaves tensors where they lie and puts numpy staging on the GPU
-    (raising where there is none)."""
-    arrs = [packed.arrays[k]
-            for k in ("meta_slab", "luma_slab", "chroma_slab", "dc_slab")]
-    if device is None and all(isinstance(a, torch.Tensor) for a in arrs):
-        return arrs
+# the device layout's staging arrays, in the order the reconstructors take
+DEVICE_STAGING = ("meta_slab", "luma_slab", "chroma_slab", "dc_slab")
+
+
+def raster_feeds(arrays, cb_off, cr_off, wmb, hmb, batch):
+    """Raster PackedFrames arrays (tensors) -> the device-layout staging
+    (meta_slab, luma_slab, chroma_slab, dc_slab) [B, W, S, maxw] that
+    the kernel reads: slab records assembled and skewed on the arrays'
+    device."""
+    g = skew_tables(wmb, hmb)
+    luma, chroma, dcs = sl.slabs_from_raster(arrays)
+    meta = sl.meta_raster(arrays, cb_off, cr_off, wmb, hmb)
+    return (sl.vmask_feed(sl.skew_feed(meta, g, batch), g, batch),
+            sl.skew_feed_slab(luma, g, batch).to(torch.int16),
+            sl.skew_feed_slab(chroma, g, batch).to(torch.int16),
+            sl.skew_feed_slab(dcs, g, batch).to(torch.int16))
+
+
+def records_feeds(arrays, cb_off, cr_off, wmb, hmb, batch):
+    """Slot-record PackedFrames arrays (tensors) -> the device-layout
+    staging: meta from the raster per-MB arrays by the skew gather, the
+    slabs by one transpose each."""
+    g = skew_tables(wmb, hmb)
+    meta = sl.meta_raster(arrays, cb_off, cr_off, wmb, hmb)
+    return (sl.vmask_feed(sl.skew_feed(meta, g, batch), g, batch),
+            *(sl.slot_feed(arrays[k], g, batch, torch.int16)
+              for k in ("luma_slab", "chroma_slab", "dc_slab")))
+
+
+def make_reconstruct_fused(wmb: int, hmb: int, batch: int,
+                           has8x8: bool = True, haspcm: bool = True):
+    """Reconstructor over RASTER-order PackedFrames tensors (the Python
+    parsers' and the native raster parse's layout): raster_feeds, then
+    the device-layout reconstructor."""
+    recon2 = make_reconstruct_fused_slots2(wmb, hmb, batch, has8x8, haspcm)
+
+    def recon(arrays, ls4, ls8, cb_off, cr_off):
+        return recon2(*raster_feeds(arrays, cb_off, cr_off, wmb, hmb,
+                                    batch), ls4, ls8)
+
+    return recon
+
+
+def make_reconstruct_fused_slots(wmb: int, hmb: int, batch: int,
+                                 has8x8: bool = True, haspcm: bool = True):
+    """Reconstructor over slot-record PackedFrames tensors: records_feeds,
+    then the device-layout reconstructor."""
+    recon2 = make_reconstruct_fused_slots2(wmb, hmb, batch, has8x8, haspcm)
+
+    def recon(arrays, ls4, ls8, cb_off, cr_off):
+        return recon2(*records_feeds(arrays, cb_off, cr_off, wmb, hmb,
+                                     batch), ls4, ls8)
+
+    return recon
+
+
+def to_device(packed: PackedFrames, device=None) -> PackedFrames:
+    """`packed` with its staging arrays as tensors on `device` (the
+    staging copy).  device=None leaves tensors where they lie and puts
+    numpy staging on the GPU (raising where there is none)."""
+    arrs = packed.arrays
+    if device is None and all(isinstance(a, torch.Tensor)
+                              for a in arrs.values()):
+        return packed
     device = resolve_device(device)
-    return [torch.as_tensor(a, device=device) for a in arrs]
+    out = dataclasses.replace(packed, arrays={
+        k: torch.as_tensor(a, device=device) for k, a in arrs.items()})
+    out.__dict__["haspcm"] = packed.haspcm     # scanned on the host
+    return out
 
 
 def reconstruct_frames_fused(packed: PackedFrames, device=None):
-    """Decode a PackedFrames batch with the fused engine on `device`
-    (default: where its staging tensors lie, or the GPU for numpy
-    staging).  Returns (Y, Cb, Cr) uint8 tensors [B, H, W] on that
-    device."""
-    recon = make_reconstruct_fused_slots2(
-        packed.wmb, packed.hmb, packed.batch, packed.has8x8, packed.haspcm)
-    return recon(*staging_tensors(packed, device), packed.ls4, packed.ls8)
+    """Decode a PackedFrames batch of any staging layout with the fused
+    engine on `device` (default: where its staging tensors lie, or the
+    GPU for numpy staging).  Dispatches on packed.slots; every layout
+    reaches the same kernel (CUDA tensors) or plain loop (CPU tensors).
+    Returns (Y, Cb, Cr) uint8 tensors [B, H, W] on that device."""
+    packed = to_device(packed, device)
+    args = (packed.wmb, packed.hmb, packed.batch, packed.has8x8,
+            packed.haspcm)
+    if packed.slots == 2:
+        return make_reconstruct_fused_slots2(*args)(
+            *(packed.arrays[k] for k in DEVICE_STAGING), packed.ls4, packed.ls8)
+    make = (make_reconstruct_fused_slots if packed.slots == 1
+            else make_reconstruct_fused)
+    return make(*args)(packed.arrays, packed.ls4, packed.ls8,
+                       *packed.chroma_qp_off)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..models.h264.syntax import KIND_I8x8, KIND_I16x16, KIND_IPCM
+from ..models.h264.tables import QPC_FROM_QPI
 from .transform import _idct8_stage_t
 
 # ---------------------------------------------------------------------------
@@ -235,3 +236,123 @@ def residual_from_slabs(coefL, coefC, dcs, meta, t4, t8, tcb, tcr,
     res_chroma = _perm(torch.where(ispcm, coefC, outc) if haspcm else outc,
                        PERMC)
     return res_luma, res_chroma
+
+
+# ---------------------------------------------------------------------------
+# feeds: raster and slot-record staging -> the device layout [B, W, S, maxw]
+#
+# The JAX package builds these feeds as [W, S, B*maxw]; here each function
+# emits [B, W, S, maxw], the layout csrc/wave_kernel.cu and
+# recon_fused.reconstruct_plain read, and x.permute(1, 2, 0, 3).reshape(
+# W, S, B*maxw) of its output is the JAX function's.  They are torch ops
+# on the device of their inputs.
+
+
+def meta_raster(arrays, cb_off, cr_off, wmb, hmb):
+    """[META_ROWS, B, n] int32 raster-order meta (availability flags per
+    h264_spatial.c:333-428 semantics + per-MB QP % 6 / QP // 6 rows)."""
+    kind = arrays["mb_kind"]
+    B, n = kind.shape
+    dev = kind.device
+    parsed = arrays["parsed"] > 0
+    sid = arrays["slice_id"]
+    qp = arrays["qpy"]
+    mm = torch.arange(n, device=dev)
+    r = mm // wmb
+    c = mm % wmb
+
+    def ok(dm, cond):
+        mmc = (mm + dm).clamp(0, n - 1)
+        return (cond[None] & parsed[:, mmc]
+                & (sid[:, mmc] == sid)).to(torch.int32)
+
+    al = ok(-1, c > 0)
+    at = ok(-wmb, r > 0)
+    atl = ok(-wmb - 1, (c > 0) & (r > 0))
+    atr = ok(-wmb + 1, (c < wmb - 1) & (r > 0))
+    qpc_tab = torch.as_tensor(QPC_FROM_QPI, device=dev)
+    qpcb = qpc_tab[(qp + cb_off).clamp(0, 51)]
+    qpcr = qpc_tab[(qp + cr_off).clamp(0, 51)]
+    return torch.cat([
+        kind[None], parsed.to(torch.int32)[None],
+        al[None], at[None], atl[None], atr[None],
+        arrays["i16_mode"][None], arrays["chroma_mode"][None],
+        arrays["luma8x8_modes"].permute(2, 0, 1),
+        arrays["luma4x4_modes"].permute(2, 0, 1),
+        (qp % 6)[None], (qp // 6)[None],
+        (qpcb % 6)[None], (qpcb // 6)[None],
+        (qpcr % 6)[None], (qpcr // 6)[None],
+        torch.zeros((META_ROWS - 34, B, n), dtype=torch.int32, device=dev),
+    ])
+
+
+def slabs_from_raster(arrays):
+    """Raster-order PackedFrames coefficient arrays -> slab records
+    [B, n, 256] / [B, n, 128] / [B, n, DC_ROWS] int32 (the feed of the
+    Python parsers and the native raster parse)."""
+    kind = arrays["mb_kind"]
+    B, n = kind.shape
+    is8 = (kind == KIND_I8x8)[..., None]
+    ispcm = (kind == KIND_IPCM)[..., None]
+
+    lac = arrays["luma_ac"].to(torch.int32)
+    # decode-order block b = (y8, x8, y4, x4); slab s = 64j + 16i + 4u+v
+    s4 = lac.reshape(B, n, 2, 2, 2, 2, 4, 4).permute(
+        0, 1, 7, 6, 2, 4, 3, 5).reshape(B, n, 256)
+    l8 = arrays["luma8x8_coeff"].to(torch.int32)
+    s8 = l8.reshape(B, n, 4, 8, 8).permute(0, 1, 4, 3, 2).reshape(
+        B, n, 256)
+    pcm = lac.reshape(B, n, 4, 4, 4, 4).permute(
+        0, 1, 3, 5, 2, 4).reshape(B, n, 256)
+    luma = torch.where(is8, s8, torch.where(ispcm, pcm, s4))
+
+    cac = arrays["chroma_ac"].to(torch.int32)
+    sc = cac.reshape(B, n, 2, 2, 2, 4, 4).permute(
+        0, 1, 6, 5, 2, 3, 4).reshape(B, n, 128)
+    pcmc = cac.reshape(B, n, 2, 2, 4, 2, 4).permute(
+        0, 1, 4, 6, 2, 3, 5).reshape(B, n, 128)
+    chroma = torch.where(ispcm, pcmc, sc)
+
+    dcs = torch.cat(
+        [arrays["luma_dc"].to(torch.int32).reshape(B, n, 16),
+         arrays["chroma_dc"].to(torch.int32).reshape(B, n, 8),
+         torch.zeros((B, n, DC_ROWS - 24), dtype=torch.int32,
+                     device=kind.device)], dim=-1)
+    return luma, chroma, dcs
+
+
+def skew_feed(x_sbn, g, batch):
+    """[S, B, n] raster -> [B, W, S, maxw] by the skew gather (padded
+    lanes alias MB 0; vmask_feed gates them)."""
+    n_waves, maxw = g["skew_idx"].shape
+    S = x_sbn.shape[0]
+    flat = torch.as_tensor(g["skew_idx"].reshape(-1).astype(np.int64),
+                           device=x_sbn.device)
+    xs = x_sbn[:, :, flat]
+    return xs.reshape(S, batch, n_waves, maxw).permute(
+        1, 2, 0, 3).contiguous()
+
+
+def skew_feed_slab(slab_bns, g, batch):
+    """[B, n, S] raster slab records -> [B, W, S, maxw]."""
+    return skew_feed(slab_bns.permute(2, 0, 1), g, batch)
+
+
+def slot_feed(slab_bws, g, batch, dtype=torch.int32):
+    """[B, n_waves*maxw, S] slot-ordered records -> [B, W, S, maxw]: the
+    native parser writes MB (r, c) at slot w*maxw + k, so this is one
+    dense transpose (no gather)."""
+    n_waves, maxw = g["skew_idx"].shape
+    S = slab_bws.shape[-1]
+    x = slab_bws.reshape(batch, n_waves, maxw, S).permute(0, 1, 3, 2)
+    return x.to(dtype).contiguous()
+
+
+def vmask_feed(meta_s, g, batch):
+    """Gate the parsed row of skewed meta [B, W, META_ROWS, maxw] on skew
+    validity (padded lanes alias MB 0 in the gather)."""
+    valid = torch.as_tensor(g["skew_valid"].astype(np.int32),
+                            device=meta_s.device)
+    out = meta_s.clone()
+    out[:, :, R_PARSED] = meta_s[:, :, R_PARSED] * valid
+    return out

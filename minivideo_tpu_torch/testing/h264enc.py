@@ -20,16 +20,18 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..models.h264.cavlc import (_CT_LEN, _CT_CODE, _CT_CDC_LEN,
+                                 _CT_CDC_CODE, _TZ_LEN, _TZ_CODE,
+                                 _TZ_CDC_LEN, _TZ_CDC_CODE, _RB_LEN,
+                                 _RB_CODE)
 from ..models.h264.expgolomb import ME_CBP_CHROMA_12
 from ..models.h264.nalu import escape_rbsp
-from ..models.h264.syntax import (FrameSyntax, KIND_I4x4, KIND_I8x8,
-                                  KIND_I16x16, KIND_IPCM)
+from ..models.h264.spatial import (A, B, chroma4x4_neighbor,
+                                   luma4x4_neighbor)
+from ..models.h264.syntax import (FrameSyntax, IntraModeResolver,
+                                  KIND_I4x4, KIND_I8x8, KIND_I16x16,
+                                  KIND_IPCM)
 from ..models.h264.tables import BLK4x4_POS
-from .cavlc_tables import (_CT_LEN, _CT_CODE, _CT_CDC_LEN, _CT_CDC_CODE,
-                           _TZ_LEN, _TZ_CODE, _TZ_CDC_LEN, _TZ_CDC_CODE,
-                           _RB_LEN, _RB_CODE)
-from .spatial import A, B, IntraModeResolver, chroma4x4_neighbor, \
-    luma4x4_neighbor
 
 # which neighbor samples each intra NxN mode requires:
 # (needs_left, needs_top, needs_corner)

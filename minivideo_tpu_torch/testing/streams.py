@@ -11,6 +11,13 @@ STREAM_1080P = dict(width_mbs=120, height_mbs=68, n_pictures=2, seed=2026,
                     profile=100, transform_8x8=True, allow_pcm=True,
                     mb_kinds=("i16", "i4", "i8"))
 
+# the 1080p CABAC workload: make_stream2(**STREAM_1080P_CABAC) from
+# testing.h264enc2, two IDR pictures with CABAC, 8x8 transforms and I_PCM
+STREAM_1080P_CABAC = dict(width_mbs=120, height_mbs=68, n_pictures=2,
+                          seed=2026, entropy="cabac",
+                          mb_kinds=("i16", "i4", "i8"), transform_8x8=True,
+                          allow_pcm=True)
+
 
 def repeat_pictures(data: bytes, reps: int) -> bytes:
     """Annex-B stream with its IDR access units repeated `reps` times
@@ -21,3 +28,47 @@ def repeat_pictures(data: bytes, reps: int) -> bytes:
                         units[idr[-1] + 1:])
     sc = b"\x00\x00\x00\x01"
     return b"".join(sc + u for u in head + pics * reps + tail)
+
+
+def _join(units) -> bytes:
+    return b"".join(b"\x00\x00\x00\x01" + u for u in units)
+
+
+def cut_idr(data: bytes, picks, keep: float) -> bytes:
+    """`data` with the IDR NALUs numbered in `picks` (0 = the first IDR
+    NALU) cut to `keep` of their length: slices whose parse fails."""
+    units = [raw for _, raw in split_annexb(data)]
+    idr = [i for i, u in enumerate(units) if u[0] & 0x1F == 5]
+    for k in picks:
+        u = units[idr[k]]
+        units[idr[k]] = u[:max(2, int(len(u) * keep))]
+    return _join(units)
+
+
+# streams with bad IDR pictures, which the decoder drops as the reference
+# does (models/h264/decoder.py): name -> (make_stream kwargs, how to spoil)
+#   truncated_idr - the second of three IDR pictures cut to a third;
+#   joined_id0    - two streams end to end, both with SPS/PPS id 0, so the
+#                   second's parameter sets also govern the first's pictures;
+#   error_run     - 66 pictures cut to a third after 2 good ones: one cut
+#                   picture still parses (its last MBs stay unparsed), the
+#                   others fail, and the decode stops once the error count
+#                   passes 64, before the 4 good pictures at the end.
+BAD_STREAMS = {
+    "truncated_idr": (dict(width_mbs=4, height_mbs=3, n_pictures=3, seed=5),
+                      dict(picks=(1,), keep=1 / 3)),
+    "joined_id0": (dict(width_mbs=4, height_mbs=3, n_pictures=3, seed=5),
+                   dict(width_mbs=6, height_mbs=2, n_pictures=2, seed=6)),
+    "error_run": (dict(width_mbs=2, height_mbs=2, n_pictures=72, seed=7),
+                  dict(picks=range(2, 68), keep=1 / 3)),
+}
+
+
+def bad_stream(name: str, make_stream) -> bytes:
+    """The stream BAD_STREAMS[name], encoded with `make_stream`
+    (testing.h264enc's, or the fixture encoder, which gives the same
+    bytes)."""
+    kw, spoil = BAD_STREAMS[name]
+    if name == "joined_id0":
+        return make_stream(**kw) + make_stream(**spoil)
+    return cut_idr(make_stream(**kw), **spoil)

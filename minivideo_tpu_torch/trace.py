@@ -15,9 +15,10 @@ WARNING = 1 << 1
 INFO = 1 << 2
 LVL1 = 1 << 3
 LVL2 = 1 << 4
+LVL3 = 1 << 5
 
 _NAMES = {ERROR: "ERROR", WARNING: "WARN ", INFO: "INFO ", LVL1: "LVL1 ",
-          LVL2: "LVL2 "}
+          LVL2: "LVL2 ", LVL3: "LVL3 "}
 _DEFAULT_MASK = ERROR | WARNING
 _masks: dict = {}
 
@@ -53,3 +54,7 @@ def t1(module: str, fmt: str, *args) -> None:
 
 def t2(module: str, fmt: str, *args) -> None:
     trace(LVL2, module, fmt, *args)
+
+
+def t3(module: str, fmt: str, *args) -> None:
+    trace(LVL3, module, fmt, *args)

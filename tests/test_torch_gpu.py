@@ -64,8 +64,9 @@ def _stream(name):
 
 def _staging(data, device):
     from minivideo_tpu_torch.models.h264.decoder import stage_annexb
-    (_, packed, arrs), = stage_annexb(data, device)
-    return packed, arrs
+    from minivideo_tpu_torch.ops.recon_fused import DEVICE_STAGING
+    (_, packed), = stage_annexb(data, device, staging_mode="device")
+    return packed, [packed.arrays[k] for k in DEVICE_STAGING]
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))

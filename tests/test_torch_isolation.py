@@ -1,7 +1,9 @@
 """The port stands alone: it imports and decodes with JAX and the JAX
-package blocked, chip_smoke.py imports neither, the port's encoder emits
-the fixture encoder's bytes, and chip_smoke.py's constants are the JAX
-package's digests of its 1080p stream."""
+package blocked, chip_smoke.py imports neither, the port's encoders emit
+the fixture encoders' bytes, and chip_smoke.py's constants are the JAX
+package's digests of its 1080p stream (the CABAC stream's digests are
+checked in test_torch_parsers.py, so that xdist runs the two long tests
+in different workers)."""
 
 import ast
 import hashlib
@@ -49,7 +51,7 @@ def test_port_runs_with_jax_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["pictures"] == 2 and out["shape"] == [48, 64]
-    assert out["modules"] >= 15 and out["loaded"] == []
+    assert out["modules"] >= 35 and out["loaded"] == []
 
 
 def _imports(path):
@@ -92,6 +94,41 @@ def test_encoder_copy_emits_fixture_bytes(kw):
     from fixtures.h264enc import make_stream as fixture_stream
     from minivideo_tpu_torch.testing.h264enc import make_stream
     assert make_stream(**kw) == fixture_stream(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(width_mbs=5, height_mbs=4, n_pictures=2, seed=3, entropy="cabac",
+         mb_kinds=("i16", "i4", "i8"), transform_8x8=True, allow_pcm=True,
+         n_slices=3),
+    dict(width_mbs=6, height_mbs=3, n_pictures=2, seed=4, qp=40,
+         mb_kinds=("i16", "i4", "i8"), transform_8x8=True, allow_pcm=True,
+         n_slices=2, density=0.6),
+    dict(width_mbs=4, height_mbs=4, n_pictures=2, seed=5, qp=0,
+         entropy="cabac", mb_kinds=("i16",), allow_pcm=True),
+    dict(width_mbs=4, height_mbs=3, n_pictures=2, seed=6, qp=51,
+         entropy="cabac", mb_kinds=("i4", "i8"), transform_8x8=True),
+    dict(width_mbs=3, height_mbs=3, n_pictures=1, seed=7, entropy="cabac",
+         mb_kinds=("i16", "i4"), density=0.9, max_level=3000),
+    dict(width_mbs=3, height_mbs=3, n_pictures=1, seed=8,
+         mb_kinds=("i16", "i4"), density=0.9, max_level=1000),
+])
+def test_encoder2_copy_emits_fixture_bytes(kw):
+    """Both entropy coders, QP extremes and escape-range levels."""
+    from fixtures.h264enc2 import make_stream2 as fixture_stream2
+    from minivideo_tpu_torch.testing.h264enc2 import make_stream2
+    assert make_stream2(**kw) == fixture_stream2(**kw)
+
+
+@pytest.mark.parametrize("name", ["truncated_idr", "joined_id0",
+                                  "error_run"])
+def test_bad_streams_are_the_fixture_s(name):
+    """chip_smoke.py pins the JAX package's pictures of these streams, so
+    the port's encoder must build them byte for byte as the fixture's."""
+    from fixtures.h264enc import make_stream as fixture_stream
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    from minivideo_tpu_torch.testing.streams import bad_stream
+    assert bad_stream(name, make_stream) == bad_stream(name, fixture_stream)
 
 
 def test_chip_smoke_digests_are_the_jax_package_s(monkeypatch):

@@ -6,6 +6,8 @@ every MB kind, I8x8, PCM, QP extremes, multi-slice, batches of 3+.
 torch and the port are imported inside the tests: see
 torch_port_helpers.py.)"""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -107,13 +109,13 @@ def test_port_staging_matches_jax():
                        mb_kinds=("i16", "i4", "i8"), transform_8x8=True,
                        profile=100, n_slices=2, allow_pcm=True)
     jp, _, _, _ = jax_packed(data)
-    (parsed, tp, arrs), = stage_annexb(data, "cpu")
-    assert len(parsed) == 3
+    (parsed, tp), = stage_annexb(data, "cpu", staging_mode="device")
+    assert len(parsed) == 3 and tp.slots == 2
     _, sps, pps, _ = parsed[0]
-    for k, t in zip(("meta_slab", "luma_slab", "chroma_slab", "dc_slab"),
-                    arrs):
-        np.testing.assert_array_equal(jp.arrays[k], tp.arrays[k], err_msg=k)
-        np.testing.assert_array_equal(jp.arrays[k], t.numpy(), err_msg=k)
+    for k in ("meta_slab", "luma_slab", "chroma_slab", "dc_slab"):
+        assert tp.arrays[k].device.type == "cpu"
+        np.testing.assert_array_equal(jp.arrays[k], tp.arrays[k].numpy(),
+                                      err_msg=k)
     np.testing.assert_array_equal(jp.ls4, tp.ls4)
     np.testing.assert_array_equal(jp.ls8, tp.ls8)
     assert (jp.has8x8, jp.haspcm) == (tp.has8x8, tp.haspcm)
@@ -163,7 +165,9 @@ def test_entry_points_default_to_cuda():
     from minivideo_tpu_torch.ops import recon_fused as tfused
     data = make_stream(width_mbs=3, height_mbs=2, n_pictures=1, seed=2)
     jp, _, _, _ = jax_packed(data)
-    (_, tp, _), = stage_annexb(data, "cpu")       # numpy staging
+    (_, on_card), = stage_annexb(data, "cpu", staging_mode="device")
+    tp = dataclasses.replace(on_card, arrays={           # numpy staging
+        k: v.numpy() for k, v in on_card.arrays.items()})
     assert isinstance(tp.arrays["meta_slab"], np.ndarray)
     if torch.cuda.is_available():
         assert packed_from_numpy(jp).arrays["meta_slab"].is_cuda
