@@ -7,8 +7,9 @@ Phases, each printing one line with its seconds:
 
   1. device     - a CUDA card must be present; prints its name and power
                   limit as nvidia-smi reports them.
-  2. build      - compiles the native entropy parser (g++) and the CUDA
-                  library (one nvcc per csrc/*.cu, sm_90a), all at once.
+  2. build      - compiles the native entropy parser and demuxer (g++)
+                  and the CUDA library (one nvcc per csrc/*.cu, sm_90a),
+                  all at once.
   3. stream     - encodes a seeded 1080p High-profile CAVLC stream of two
                   IDR pictures (I16x16/I4x4/I8x8 and I_PCM macroblocks)
                   with the port's fixture encoder and checks its SHA-256,
@@ -30,8 +31,10 @@ Phases, each printing one line with its seconds:
                   same stream, with one wave-kernel launch for the batch;
                   then tiles_to_raster_cuda() once, one launch.
   7. timing     - per 1080p batch of 16: CUDA-event time over
-                  back-to-back calls of both kernels, of their plain
-                  versions and of the interleave library call, and
+                  back-to-back calls of both kernels, of the interleave
+                  kernel's plain version and library call (the wave
+                  kernel's plain loop, seconds a run, is timed once in
+                  phase 4), and
                   torch.profiler device time of both kernels; the wave
                   kernel's times for one picture (B = 1); the bounds;
                   decode_annexb pictures/s with a host breakdown.
@@ -40,7 +43,24 @@ Phases, each printing one line with its seconds:
                   repeated to 16 pictures and decoded on the card: the
                   JAX package's digests, one launch, and its host-clock
                   breakdown and pictures/s.
-  9. staging    - the 1080p CAVLC batch through the three staging layouts
+  9. containers - the 1080p CAVLC batch written into an MP4, a Matroska
+                  and an MPEG-TS file, and the CABAC batch into an MP4
+                  (testing/containers.py), each decoded through mv_open,
+                  mv_parse and mv_decode on the card: the JAX digests, 16
+                  pictures, one launch, and the host-clock split into
+                  demux, stream assembly and decode_annexb with
+                  pictures/s; every run must go through the native
+                  demuxer.  Then RGB output (want_rgb=True) from the
+                  CAVLC MP4: every picture's RGB equals the JAX package's
+                  (RGB_DIGESTS) and the port's numpy converter, with the
+                  RGB op's time on resident planes, the numpy converter's
+                  on the read-back pictures, and pictures/s with and
+                  without RGB.  Then the Python demuxers
+                  (MINIVIDEO_TPU_NO_NATIVE=1) on the MP4 and Matroska
+                  files: tables equal to the native demuxer's, and the
+                  pictures decoded from the Python tables give the JAX
+                  digests.
+ 10. staging    - the 1080p CAVLC batch through the three staging layouts
                   (MINIVIDEO_TPU_STAGING=device and =records through
                   decode_annexb; raster: the full native parse, pack_frames
                   and reconstruct_batch), each giving the JAX digests with
@@ -48,10 +68,10 @@ Phases, each printing one line with its seconds:
                   prep and kernel ms (CUDA events), pictures/s.  Then the
                   four staging constants of minivideo_tpu_torch/settings.py
                   measured on this host, and what "auto" picks.
- 10. parsers    - small CAVLC and CABAC streams (8x8, I_PCM, 3 slices)
+ 11. parsers    - small CAVLC and CABAC streams (8x8, I_PCM, 3 slices)
                   decoded under MINIVIDEO_TPU_NO_NATIVE=1 (the Python
                   parsers) equal the native parse's planes.
- 11. bad slices - streams with bad IDR pictures (testing/streams.py
+ 12. bad slices - streams with bad IDR pictures (testing/streams.py
                   BAD_STREAMS) give the JAX package's pictures, digests
                   pinned, as the reference drops the bad ones.
 
@@ -102,6 +122,13 @@ CABAC_DIGESTS = [
     ["b7288174c4c771a5d50ff377919850cc3b29bc89c696d23b4f6f70744f426b4c",
      "1e039dacf90d6ab54992f0426bbb2a940ff3cfca462f73ddd9b42a71e7afb677",
      "8dfaa6b9fffa8e9f628ed3aafdeb3ffc945fe7f039565503a2197b46f715bc5a"],
+]
+# SHA-256 of the RGB888 [1088, 1920, 3] of each picture: the JAX
+# package's yuv420_to_rgb_device on its planes (decode_annexb(engine=
+# "fused", want_rgb=True)), on the CPU
+RGB_DIGESTS = [
+    "4f33a8b0805bf8d2447abe9949c77acfb3c311526536110dca08b4ff01c6498c",
+    "d6d56ae3c47f373a42c5b64cbc38b054d8dc4bf5817d99d6c37f1d58595fb398",
 ]
 # per stream of testing/streams.BAD_STREAMS, the pictures the JAX package
 # returns (its decode_annexb, engine "fused" and "np" alike)
@@ -291,16 +318,21 @@ def max_err(got, want):
 
 def compare_kernel(packed, arrs):
     """Run the CUDA kernel and the plain loop on the same staging on the
-    card; returns (max |kernel - plain| over all planes, kernel planes)."""
+    card; returns (max |kernel - plain| over all planes, kernel planes,
+    the plain loop's milliseconds by CUDA events)."""
     import torch
     from minivideo_tpu_torch.ops.recon_fused import (reconstruct_plain,
                                                      wave_kernel_cuda)
     args = (*arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb)
     kw = dict(has8x8=packed.has8x8, haspcm=packed.haspcm)
     got = wave_kernel_cuda(*args, **kw)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
     want = reconstruct_plain(*args, **kw)
-    torch.cuda.synchronize()
-    return max_err(got, want), got
+    e.record()
+    e.synchronize()
+    return max_err(got, want), got, s.elapsed_time(e)
 
 
 def breakdown(stream, dev, mode=None):
@@ -462,6 +494,209 @@ def phase_staging(t0, dev, streams):
     return ok
 
 
+# Track columns and metadata the native and Python demuxers must agree on
+TRACK_FIELDS = ("stream_type", "stream_fcc", "stream_codec", "width",
+                "height", "framerate", "framerate_num", "framerate_base",
+                "frame_count", "frame_count_idr", "stream_size", "bitrate",
+                "nal_length_size", "length_prefixed", "parameter_sets",
+                "sample_type", "sample_size", "sample_offset", "sample_pts",
+                "sample_dts")
+
+
+def same_tracks(a, b):
+    """Whether two MediaFiles' tracks agree on TRACK_FIELDS (arrays element
+    by element, dtypes included)."""
+    import numpy as np
+    if len(a.tracks) != len(b.tracks):
+        return False
+    for ta, tb in zip(a.tracks, b.tracks):
+        for f in TRACK_FIELDS:
+            va, vb = getattr(ta, f), getattr(tb, f)
+            if isinstance(va, np.ndarray):
+                if va.dtype != vb.dtype or not np.array_equal(va, vb):
+                    return False
+            elif va != vb:
+                return False
+    return True
+
+
+def mv_decode_split(path, **kw):
+    """mv_open, mv_parse and mv_decode of `path` on the card: (pictures,
+    host-clock seconds of demux, stream assembly and decode_annexb).
+    mv_decode imports decode_annexb at each call, so the decoder module's
+    name is wrapped here to time it.  demux() imports native_demux at
+    each call too, and falls back to the Python demuxers without a word
+    where it returns False: its name is wrapped here as well, and the
+    call raises unless the native demuxer ran and succeeded."""
+    from minivideo_tpu_torch.api import mv_close, mv_decode, mv_open, mv_parse
+    from minivideo_tpu_torch.containers import native
+    from minivideo_tpu_torch.models.h264 import decoder
+    real = decoder.decode_annexb
+    real_demux = native.native_demux
+    secs = {}
+    demuxed = []
+
+    def native_counted(media):
+        demuxed.append(real_demux(media))
+        return demuxed[-1]
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        out = real(*a, **k)          # returns host arrays: synchronised
+        secs["decode_annexb"] = time.perf_counter() - t
+        return out
+
+    native.native_demux = native_counted
+    t = time.perf_counter()
+    media = mv_open(path)
+    try:
+        if not mv_parse(media, audio=False, subs=False):
+            raise RuntimeError(f"mv_parse failed on {path}")
+        secs["demux"] = time.perf_counter() - t
+        if demuxed != [True]:
+            raise RuntimeError(f"the native demuxer did not demux {path} "
+                               f"(native_demux returned {demuxed})")
+        decoder.decode_annexb = timed
+        t = time.perf_counter()
+        pics = mv_decode(media, picture_number=BATCH, **kw)
+        total = time.perf_counter() - t
+    finally:
+        decoder.decode_annexb = real
+        native.native_demux = real_demux
+        mv_close(media)
+    secs["assembly"] = total - secs["decode_annexb"]
+    secs["total"] = secs["demux"] + total
+    return pics, secs
+
+
+def phase_containers(t0, dev, streams):
+    """The 1080p batches from MP4, Matroska and MPEG-TS files through the
+    user's entry points, RGB output, and the Python demuxers against the
+    native one."""
+    import tempfile
+    import numpy as np
+    from minivideo_tpu_torch.api import mv_close, mv_decode, mv_open, mv_parse
+    from minivideo_tpu_torch.containers.native import native_demux
+    from minivideo_tpu_torch.export.image import yuv420_to_rgb_py
+    from minivideo_tpu_torch.ops import recon_fused
+    from minivideo_tpu_torch.ops.color import yuv420_to_rgb_device
+    from minivideo_tpu_torch.testing import containers as C
+    ok = True
+    writers = {"mp4": lambda s: C.write_mp4(s, 1920, 1088),
+               "mkv": lambda s: C.write_mkv(s, 1920, 1088),
+               "ts": C.write_ts}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        files = {}
+        for entropy, fmt in (("cavlc", "mp4"), ("cavlc", "mkv"),
+                             ("cavlc", "ts"), ("cabac", "mp4")):
+            path = os.path.join(tmp, f"{entropy}.{fmt}")
+            with open(path, "wb") as f:
+                f.write(writers[fmt](streams[entropy]))
+            files[entropy, fmt] = path
+        totals = {}
+        for (entropy, fmt), path in files.items():
+            pinned = JAX_DIGESTS if entropy == "cavlc" else CABAC_DIGESTS
+            want = [pinned[i % len(pinned)] for i in range(BATCH)]
+            # the counted run is the first of the three timed ones
+            (pics, first), launches = decode_counted(
+                lambda: mv_decode_split(path))
+            splits = [first] + [mv_decode_split(path)[1] for _ in range(2)]
+            split = {k: statistics.median(sp[k] for sp in splits)
+                     for k in splits[0]}
+            totals[entropy, fmt] = split["total"]
+            good = (digests(pics) == want and len(pics) == BATCH
+                    and launches == 1)
+            ok = ok and good
+            log("containers", t0, f"{entropy} {fmt} "
+                f"({os.path.getsize(path)} bytes): mv_decode {len(pics)} "
+                f"pictures, planes {'=' if digests(pics) == want else '!='} "
+                f"JAX digests, wave_kernel launches {launches} (want 1); "
+                f"host clock, s, median of 3: demux (native) "
+                f"{split['demux']:.4f}, stream assembly "
+                f"{split['assembly']:.4f}, decode_annexb "
+                f"{split['decode_annexb']:.4f}; "
+                f"{BATCH / split['total']:.2f} pictures/s "
+                + ("ok" if good else "FAILED"))
+
+        # RGB output on the card
+        path = files["cavlc", "mp4"]
+        (pics, first), launches = decode_counted(
+            lambda: mv_decode_split(path, want_rgb=True))
+        rgb_want = [RGB_DIGESTS[i % len(RGB_DIGESTS)] for i in range(BATCH)]
+        rgb_got = [sha(p.rgb) for p in pics]
+        host_same = all(np.array_equal(p.rgb, yuv420_to_rgb_py(p.y, p.cb,
+                                                                p.cr))
+                        for p in pics)
+        good = (rgb_got == rgb_want and host_same and launches == 1
+                and pics[0].rgb.shape == (1088, 1920, 3)
+                and digests(pics) == [JAX_DIGESTS[i % 2]
+                                      for i in range(BATCH)])
+        ok = ok and good
+        packed, _, _ = staged(streams["cavlc"], dev)
+        planes = recon_fused.reconstruct_frames_fused(packed, dev)
+        rgb_ms = cuda_ms(lambda: yuv420_to_rgb_device(*planes), 10)
+        rgb_bytes = planes[0].numel() * 3
+        bound_ms = (planes[0].numel() * 3 // 2 + rgb_bytes) \
+            / HBM_BYTES_PER_S * 1e3
+        # the host converter on the read-back planes, one pass over the
+        # batch, against the card's op plus its readback
+        t = time.perf_counter()
+        for p in pics:
+            yuv420_to_rgb_py(p.y, p.cb, p.cr)
+        host_ms = (time.perf_counter() - t) * 1e3
+        with_rgb = statistics.median(
+            [first["total"]] + [mv_decode_split(path, want_rgb=True)[1]
+                                ["total"] for _ in range(2)])
+        without = totals["cavlc", "mp4"]
+        log("containers", t0, f"rgb: {len(pics)} pictures, RGB "
+            f"{'=' if rgb_got == rgb_want else '!='} JAX digests, "
+            f"{'=' if host_same else '!='} the numpy converter, launches "
+            f"{launches} (want 1); yuv420_to_rgb_device on resident "
+            f"{list(planes[0].shape)} planes {rgb_ms:.3f} ms (CUDA events), "
+            f"bound {bound_ms:.4f} ms by bytes; extra readback {rgb_bytes} "
+            f"bytes; host yuv420_to_rgb_py on the {len(pics)} read-back "
+            f"pictures {host_ms:.1f} ms (host clock, one pass); mv_decode "
+            f"{BATCH / with_rgb:.2f} pictures/s with RGB, "
+            f"{BATCH / without:.2f} without (median of 3) "
+            + ("ok" if good else "FAILED"))
+
+        # the Python demuxers against the native one: equal tables, and
+        # the Python tables' samples, read from the open file and parsed
+        # by the native entropy parser, decode to the JAX digests
+        for fmt in ("mp4", "mkv"):
+            path = files["cavlc", fmt]
+            native = mv_open(path)
+            native_ok = native_demux(native)
+            mv_close(native)
+            with env(MINIVIDEO_TPU_NO_NATIVE="1"):
+                python = mv_open(path)
+                python_ok = mv_parse(python, audio=False, subs=False)
+            try:
+                equal = (native_ok and python_ok
+                         and same_tracks(native, python))
+                pics, launches = decode_counted(
+                    lambda: mv_decode(python, picture_number=BATCH))
+            finally:
+                mv_close(python)
+            same_pics = digests(pics) == [JAX_DIGESTS[i % 2]
+                                          for i in range(BATCH)]
+            good = equal and same_pics and launches == 1
+            ok = ok and good
+            log("containers", t0, f"{fmt}: native demux "
+                f"{'ok' if native_ok else 'FAILED'}, Python demux tables "
+                f"{'=' if equal else '!='} native "
+                f"({native.tracks_video[0].sample_count if native_ok else 0}"
+                f" samples); {len(pics)} pictures decoded from the Python "
+                f"tables {'=' if same_pics else '!='} JAX digests, "
+                f"launches {launches} (want 1) "
+                + ("ok" if good else "FAILED"))
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
 # small streams for the Python parsers: 8x8 transforms, I_PCM, 3 slices
 PARSER_STREAMS = {
     "cavlc": dict(width_mbs=6, height_mbs=4, n_pictures=2, seed=21,
@@ -556,6 +791,7 @@ def main():
 
     threads = [threading.Thread(target=build, args=a) for a in
                (("entropy.cc (g++)", native.build),
+                ("demux.cc (g++)", native.build_demux),
                 ("csrc/*.cu (nvcc sm_90a, one per source, then link)",
                  kernels.build))]
     for th in threads:
@@ -597,7 +833,9 @@ def main():
     packed, arrs, _ = staged(wide, dev)
     err_wide = compare_kernel(packed, arrs)[0]
     packed, arrs, _ = staged(stream, dev)
-    err1080, first = compare_kernel(packed, arrs)
+    # the plain loop takes seconds at 1080p: this run, after the smaller
+    # ones above have warmed it up, is also its timing
+    err1080, first, plain_ms = compare_kernel(packed, arrs)
     args = (*arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb)
     kw = dict(has8x8=packed.has8x8, haspcm=packed.haspcm)
     same = [all(torch.equal(a, b) for a, b in
@@ -674,8 +912,6 @@ def main():
     one = [x[:1] for x in arrs]            # the first picture alone
     kernel_ms = cuda_ms(wave, TIMED_RUNS)
     kernel1_ms = cuda_ms(lambda: wave(one), TIMED_RUNS)
-    plain_ms = cuda_ms(lambda: recon_fused.reconstruct_plain(*args, **kw),
-                       1)
     nbytes = wave_kernel_bytes(packed)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     il_ms = cuda_ms(lambda: interleave.tiles_to_raster_cuda(tiles, wmb, hmb),
@@ -730,15 +966,18 @@ def main():
     log("timing", t0, f"per 1080p batch of {BATCH}: wave_kernel "
         f"{kernel_ms:.3f} ms (B=1: {kernel1_ms:.3f} ms, "
         f"{kernel1_ms / (2 * hmb + wmb - 2) * 1e3:.2f} us per dependent "
-        f"MB step), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"MB step), plain {plain_ms:.3f} ms (one run, phase 4), bound {bound_ms:.4f} ms "
         f"({nbytes} bytes); interleave {il_ms:.4f} ms, plain "
         f"{il_plain_ms:.4f} ms, permute().contiguous() {il_lib_ms:.4f} ms, "
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
 
-    # ---- 8.-11. CABAC, staging layouts, Python parsers, bad slices --------
+    # ---- 8.-12. CABAC, containers, staging layouts, Python parsers, bad
+    # slices
     streams = {"cavlc": stream}            # the 1080p batches of 16
-    for name, phase in (("cabac", phase_cabac), ("staging", phase_staging),
+    for name, phase in (("cabac", phase_cabac),
+                        ("containers", phase_containers),
+                        ("staging", phase_staging),
                         ("parsers", phase_parsers),
                         ("bad slices", phase_bad_slices)):
         if not phase(t0, dev, streams):

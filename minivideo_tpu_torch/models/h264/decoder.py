@@ -9,7 +9,9 @@ ops/recon_fused (the CUDA kernel on a GPU, its plain PyTorch version on
 the CPU).  Under MINIVIDEO_TPU_NO_NATIVE=1 the Python CAVLC/CABAC parsers
 fill raster staging instead; a part whose slab parse fails is parsed
 again picture by picture into raster staging, dropping the pictures that
-fail, as the reference drops bad IDR pictures.
+fail, as the reference drops bad IDR pictures.  With want_rgb the
+planes are also converted to RGB888 on the decode's device
+(ops/color.py) before they are read back.
 
 Reference: h264_decode (minivideo/src/decoder/h264/h264.c:41-206) — NALU
 loop dispatching on nal_unit_type {5 IDR, 6 SEI, 7 SPS, 8 PPS}, with its
@@ -33,6 +35,7 @@ from ...native import (parse_slice_native, parse_slice_native_slab,
                        parse_slice_native_slab2)
 from ...ops.recon import (make_slab_staging, make_slab_staging2,
                           pack_frames, pack_frames_slots, pack_frames_slots2)
+from ...ops.color import yuv420_to_rgb_device
 from ...ops.recon_fused import reconstruct_frames_fused, to_device
 from ...settings import staging_mode as _staging_mode
 from .cabac import CabacSliceParser
@@ -66,22 +69,37 @@ class DecodedPicture:
     height: int
     idr_index: int = 0
     syntax: object = None    # FrameSyntax (kept for tests)
+    rgb: np.ndarray = None   # RGB888 of the uncropped planes, converted
+    #                          on the decode's device (ops/color.py),
+    #                          set when the decode requested RGB output
 
     def cropped(self):
         return (self.y[:self.height, :self.width],
                 self.cb[:self.height // 2, :self.width // 2],
                 self.cr[:self.height // 2, :self.width // 2])
 
+    def cropped_rgb(self):
+        """Display-cropped RGB888: the device-converted plane when the
+        decode produced one, else the host conversion of the cropped
+        planes (the same bytes at even crops)."""
+        if self.rgb is not None:
+            return self.rgb[:self.height, :self.width]
+        from ...export.image import yuv420_to_rgb_py
+        return yuv420_to_rgb_py(*self.cropped())
+
 
 class H264Decoder:
     """Stateful NALU-stream decoder (SPS/PPS context + IDR decoding)."""
 
-    def __init__(self, engine: str = "fused", device=None):
+    def __init__(self, engine: str = "fused", device=None,
+                 want_rgb: bool = False):
         self.sps_map: dict = {}
         self.pps_map: dict = {}
         self.engine = resolve_engine(engine)
         self.device = resolve_device(device)
         self.idr_count = 0
+        # convert to RGB888 on the device, before the readback
+        self.want_rgb = want_rgb
 
     # -- NALU feed -----------------------------------------------------------
 
@@ -246,19 +264,23 @@ class H264Decoder:
         decoder's device.  parsed_groups: list of (fs, sps, pps,
         slice_of_mb) sharing one SPS/PPS; `packed` may be their prebuilt
         slab staging (parse_groups_slab or stage_groups), else they are
-        packed in raster staging."""
+        packed in raster staging.  With want_rgb the uncropped planes
+        are converted to RGB888 there and read back with them."""
         _, sps, pps, _ = parsed_groups[0]
         if packed is None:
             packed = pack_frames([(fs, som) for fs, _, _, som
                                   in parsed_groups], sps, pps)
-        yb, cbb, crb = (p.cpu().numpy() for p in
-                        reconstruct_frames_fused(packed, self.device))
+        planes = reconstruct_frames_fused(packed, self.device)
+        rgbb = (yuv420_to_rgb_device(*planes).cpu().numpy()
+                if self.want_rgb else None)
+        yb, cbb, crb = (p.cpu().numpy() for p in planes)
         pics = []
         for i, (fs, _, _, _) in enumerate(parsed_groups):
             pics.append(DecodedPicture(
                 y=yb[i], cb=cbb[i], cr=crb[i],
                 width=sps.cropped_width, height=sps.cropped_height,
-                idr_index=self.idr_count, syntax=fs))
+                idr_index=self.idr_count, syntax=fs,
+                rgb=rgbb[i] if rgbb is not None else None))
             self.idr_count += 1
         return pics
 
@@ -368,12 +390,12 @@ def group_idr_access_units(nalus):
     return groups
 
 
-def _open_stream(data: bytes, engine: str, device):
+def _open_stream(data: bytes, engine: str, device, want_rgb=False):
     """Split `data` into NALUs, feed every non-IDR NALU (parameter sets,
     SEI) to a new decoder and group the IDR slices into pictures.
     Returns (decoder, picture groups, error count); tolerates per-NALU
     errors as the reference's h264_decode() main loop (h264.c:76-188)."""
-    dec = H264Decoder(engine=engine, device=device)
+    dec = H264Decoder(engine=engine, device=device, want_rgb=want_rgb)
     errors = 0
     nalus = []
     for off, raw in split_annexb(data):
@@ -408,7 +430,9 @@ def stage_annexb(data: bytes, device=None, pool=None, timings=None,
     Returns [(parsed_groups, PackedFrames), ...], the arguments of
     H264Decoder.reconstruct_batch, the back half.  `timings` (optional
     dict) receives the host seconds of "nalu" and, for the last part,
-    "parse" and "h2d"."""
+    "parse" and "h2d".  Staging does not depend on RGB output: pass
+    want_rgb to the H264Decoder whose reconstruct_batch runs the back
+    half."""
     t = time.perf_counter()
     dec, groups, errors = _open_stream(data, "fused", device)
     parts, _ = _partition(dec, iter(groups), 0, errors)
@@ -419,10 +443,11 @@ def stage_annexb(data: bytes, device=None, pool=None, timings=None,
 
 
 def decode_annexb(data: bytes, max_pictures: int = 0, engine: str = "fused",
-                  device=None):
+                  device=None, want_rgb: bool = False):
     """Decode an Annex-B byte stream; returns a list of DecodedPicture.
 
     device=None decodes on the GPU and raises when there is none;
-    device="cpu" runs the plain PyTorch engine."""
-    dec, idr_groups, errors = _open_stream(data, engine, device)
+    device="cpu" runs the plain PyTorch engine.  want_rgb: also return
+    RGB888 converted on that device (DecodedPicture.rgb)."""
+    dec, idr_groups, errors = _open_stream(data, engine, device, want_rgb)
     return _decode_batched(dec, iter(idr_groups), max_pictures, errors)

@@ -1,12 +1,15 @@
-"""ctypes binding of the native entropy parser (src/entropy.cc).
+"""ctypes bindings of the native host libraries: the entropy parser
+(src/entropy.cc) and the demuxer (src/demux.cc, bound by
+containers/native.py).
 
-The library is built from the sources in this package at first use
-(`g++ -O3 -fPIC -shared -std=c++17 -pthread`, see _build.py) and loaded
-from the package's ignored build directory; a failed build raises.  Three
-parses are bound, one per staging layout of ops/recon.py:
-`parse_slice_native` (raster: the full FrameSyntax arrays, a drop-in for
-the Python parsers), `parse_slice_native_slab` (slot records) and
-`parse_slice_native_slab2` (device layout, with the meta rows).
+Each is built from the sources in this package at first use, as its own
+library (`g++ -O3 -fPIC -shared -std=c++17`, -pthread for the parser,
+see _build.py), and loaded from the package's ignored build directory; a
+failed build raises.  Three parses are bound, one per staging layout of
+ops/recon.py: `parse_slice_native` (raster: the full FrameSyntax arrays,
+a drop-in for the Python parsers), `parse_slice_native_slab` (slot
+records) and `parse_slice_native_slab2` (device layout, with the meta
+rows).
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from ..models.h264.syntax import KIND_IPCM
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
                     "entropy.cc")
+_DEMUX_SRC = os.path.join(os.path.dirname(_SRC), "demux.cc")
 _lib = None
+_demux_lib = None
 
 
 def _cmd(out, sources):
@@ -33,6 +38,22 @@ def _cmd(out, sources):
 def build() -> str:
     """Compile the parser if its build is missing; returns the .so path."""
     return build_shared("mvt_entropy", [_SRC], _cmd)
+
+
+def build_demux() -> str:
+    """Compile the demuxer if its build is missing; returns the .so path."""
+    return build_shared(
+        "mvt_demux", [_DEMUX_SRC],
+        lambda out, sources: ["g++", "-O3", "-fPIC", "-shared",
+                              "-std=c++17", "-o", out, *sources])
+
+
+def load_demux():
+    """Load (building if needed) the native demuxer library."""
+    global _demux_lib
+    if _demux_lib is None:
+        _demux_lib = ctypes.CDLL(build_demux())
+    return _demux_lib
 
 
 def load():

@@ -1,5 +1,15 @@
-"""Staging-layout choice of the port (the staging half of
-minivideo_tpu/settings.py).
+"""Runtime settings of the port (minivideo_tpu/settings.py): the
+engines, the host's endianness, the library's info dump, and the
+staging-layout choice.
+
+Not ported: the JAX module's `Settings` snapshot (`settings()`,
+`from_env`), whose engine, profile and color knobs nothing in the port
+reads; `get_infos` reads the two switches the port has
+(MINIVIDEO_TPU_TRACE, MINIVIDEO_TPU_NO_NATIVE) where it is called, as
+the tracer and the demuxer/decoder do.  Nor `ensure_compile_cache`,
+which points JAX at its persistent XLA compile cache; the port compiles
+its libraries once per checkout into `_build/` (_build.py), and has no
+XLA cache to wire.
 
 The decoder stages a batch in one of two layouts (ops/recon.py): "records"
 (slot records; cheaper host writes, a feed transpose and the meta build on
@@ -16,6 +26,15 @@ from __future__ import annotations
 
 import math
 import os
+import sys
+
+VERSION = (0, 5, 0)          # the JAX package's version
+VERSION_STR = ".".join(str(v) for v in VERSION)
+
+# reconstruction engines of the port: the fused wave engine (the CUDA
+# kernel on a GPU, its plain PyTorch version on the CPU)
+ENGINES = ("fused",)
+
 
 # Measured by chip_smoke.py's staging phase on an NVIDIA H100 80GB HBM3
 # at a 700.00 W power limit (nvidia-smi), on a host with 8 cores; PERF.md
@@ -61,3 +80,44 @@ def staging_mode() -> str:
     cores = os.cpu_count() or 1
     return ("device" if cores >= staging_crossover_cores()
             else "records")
+
+
+def endianness() -> int:
+    """4321 for little-endian hosts, 1234 for big-endian (the reference's
+    minivideo_endianness contract, minivideo.c:159-199)."""
+    return 4321 if sys.byteorder == "little" else 1234
+
+
+def get_infos() -> dict:
+    """Version + feature flags (reference minivideo_get_infos,
+    minivideo.c:140-156): the JAX package's keys, with "torch" in place
+    of "jax" and the CUDA cards as "devices".  The native libraries are
+    built at first use and a failed build raises, so "native_runtime"
+    is whether MINIVIDEO_TPU_NO_NATIVE leaves the native paths on now.
+    The port has one engine, decodes I_PCM and colors its traces on a
+    terminal, so those three keys are constants."""
+    import torch
+    return {
+        "version": VERSION_STR,
+        "version_major": VERSION[0],
+        "version_minor": VERSION[1],
+        "version_patch": VERSION[2],
+        "python": sys.version.split()[0],
+        "endianness": endianness(),
+        "traces": bool(os.environ.get("MINIVIDEO_TPU_TRACE")),
+        "colors": True,
+        "native_runtime": os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1",
+        "engine": ENGINES[0],
+        "ipcm": True,
+        "torch": torch.__version__,
+        "devices": [torch.cuda.get_device_name(i)
+                    for i in range(torch.cuda.device_count())],
+    }
+
+
+def print_infos(file=None) -> None:
+    """Human-readable settings dump (reference minivideo_print_infos,
+    minivideo.c:59-137)."""
+    f = file or sys.stdout
+    for k, v in get_infos().items():
+        print(f"* {k}: {v}", file=f)

@@ -148,3 +148,25 @@ def test_interleave_matches_plain_and_library(cuda):
         interleave.tiles_to_raster_cuda(strided, 7, 5)
     with pytest.raises(TypeError):
         interleave.tiles_to_raster_cuda(strided.int(), 7, 5)
+
+
+def test_mv_decode_mp4_on_card_equals_cpu(cuda, tmp_path):
+    """mv_open / mv_parse / mv_decode of a small MP4 on the card, with
+    RGB: one launch, and the CPU run's planes and RGB."""
+    from minivideo_tpu_torch import api
+    from minivideo_tpu_torch.ops import recon_fused as tfused
+    from minivideo_tpu_torch.testing.containers import write_mp4
+    path = tmp_path / "clip.mp4"
+    path.write_bytes(write_mp4(_stream("i8_slices"), 112, 80))
+    media = api.mv_open(str(path))
+    assert api.mv_parse(media, audio=False, subs=False)
+    tfused.wave_kernel_cuda.launches = 0
+    got = api.mv_decode(media, picture_number=3, want_rgb=True)
+    assert tfused.wave_kernel_cuda.launches == 1
+    want = api.mv_decode(media, picture_number=3, device="cpu",
+                         want_rgb=True)
+    api.mv_close(media)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for a, b in ((g.y, w.y), (g.cb, w.cb), (g.cr, w.cr), (g.rgb, w.rgb)):
+            assert a.shape == b.shape and (a == b).all()

@@ -90,10 +90,27 @@ def test_sources_import_nothing_of_jax():
          pps_scaling_lists=[(1, list(range(8, 24)))] * 8),
 ])
 def test_encoder_copy_emits_fixture_bytes(kw):
+    """The encoder's stream, and that stream in every container that the
+    port's copy of the fixture writers builds (testing/containers.py)."""
     # imported here, not at collection (see torch_port_helpers.py)
+    from fixtures import containers as fixture
     from fixtures.h264enc import make_stream as fixture_stream
+    from minivideo_tpu_torch.testing import containers
     from minivideo_tpu_torch.testing.h264enc import make_stream
-    assert make_stream(**kw) == fixture_stream(**kw)
+    data = make_stream(**kw)
+    assert data == fixture_stream(**kw)
+    w, h = 16 * kw.get("width_mbs", 4), 16 * kw.get("height_mbs", 3)
+    for name, args in (("write_mp4", (w, h)), ("write_mkv", (w, h)),
+                       ("write_ts", ()), ("write_avi", (w, h)),
+                       ("write_ps", ())):
+        assert getattr(containers, name)(data, *args) == \
+            getattr(fixture, name)(data, *args), name
+    assert containers.write_mp4(data, w, h, visual_ext=True) == \
+        fixture.write_mp4(data, w, h, visual_ext=True)
+    assert containers.write_mkv(data, w, h, lacing="xiph") == \
+        fixture.write_mkv(data, w, h, lacing="xiph")
+    assert containers.write_avi(data, w, h, opendml=True) == \
+        fixture.write_avi(data, w, h, opendml=True)
 
 
 @pytest.mark.parametrize("kw", [
@@ -132,10 +149,10 @@ def test_bad_streams_are_the_fixture_s(name):
 
 
 def test_chip_smoke_digests_are_the_jax_package_s(monkeypatch):
-    """The 1080p stream's SHA-256 and the per-picture plane digests in
-    chip_smoke.py equal what the fixture encoder and the JAX package's
-    fused engine (device staging) give, and the port's CPU decode of the
-    stream gives them too."""
+    """The 1080p stream's SHA-256, the per-picture plane digests and the
+    RGB digests in chip_smoke.py equal what the fixture encoder and the
+    JAX package's fused engine (device staging, want_rgb) give, and the
+    port's CPU decode of the stream gives them too."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from fixtures.h264enc import make_stream
@@ -150,9 +167,16 @@ def test_chip_smoke_digests_are_the_jax_package_s(monkeypatch):
         return [[hashlib.sha256(np.ascontiguousarray(a).tobytes())
                  .hexdigest() for a in (p.y, p.cb, p.cr)] for p in pics]
 
-    assert digests(decode_annexb(data, engine="fused")) == \
-        chip_smoke.JAX_DIGESTS
-    assert digests(port_decode(data, device="cpu")) == chip_smoke.JAX_DIGESTS
+    def rgb_digests(pics):
+        return [hashlib.sha256(np.ascontiguousarray(p.rgb).tobytes())
+                .hexdigest() for p in pics]
+
+    want = decode_annexb(data, engine="fused", want_rgb=True)
+    assert digests(want) == chip_smoke.JAX_DIGESTS
+    assert rgb_digests(want) == chip_smoke.RGB_DIGESTS
+    got = port_decode(data, device="cpu", want_rgb=True)
+    assert digests(got) == chip_smoke.JAX_DIGESTS
+    assert rgb_digests(got) == chip_smoke.RGB_DIGESTS
     assert len(chip_smoke.JAX_DIGESTS) == chip_smoke.STREAM_KW["n_pictures"]
 
 
