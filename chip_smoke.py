@@ -7,7 +7,8 @@ Phases, each printing one line with its seconds:
 
   1. device     - a CUDA card must be present; prints its name and power
                   limit as nvidia-smi reports them.
-  2. build      - compiles the native entropy parser and demuxer (g++)
+  2. build      - compiles the native entropy parser, demuxer and picture
+                  encoders (g++; export.cc with -march=native and zlib)
                   and the CUDA library (one nvcc per csrc/*.cu, sm_90a),
                   all at once.
   3. stream     - encodes a seeded 1080p High-profile CAVLC stream of two
@@ -74,6 +75,26 @@ Phases, each printing one line with its seconds:
  12. bad slices - streams with bad IDR pictures (testing/streams.py
                   BAD_STREAMS) give the JAX package's pictures, digests
                   pinned, as the reference drops the bad ones.
+ 13. thumbnails - batch_thumbnail (parallel/batch.py) on the card over 19
+                  files: the two 1080p CAVLC pictures alternating in 8
+                  MP4, 4 Matroska and 4 MPEG-TS files, the CABAC MP4, a
+                  4x3-MB clip and a 4x3-MB clip whose slice data is
+                  corrupt.  Two buckets, so two wave-kernel launches; the
+                  corrupt clip fails, its picture is black and the kernel
+                  equals its plain version on that bucket; YUV420 files
+                  give the JAX digests, PNG pixels (inflated and
+                  unfiltered here: PNG bytes depend on the encoder's
+                  thread count) RGB_DIGESTS, JPEG bytes JPEG_DIGESTS (the
+                  JAX package's native JPEG); a second call skips every
+                  done clip.  StageTimer's stages and thumbnails/s per
+                  format (median of 3); the card's RGB op plus its
+                  readback against the native host converter; PNG
+                  encoding as the export pool runs it (8 workers x one
+                  band per hardware thread) against one band each and
+                  one worker; the thumbnailer CLI (-n 16 -f png) on the
+                  16-picture MP4; mv_extract of its video track to ES
+                  (SHA-256 pinned), decoded on the card to the JAX
+                  digests.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -748,6 +769,398 @@ def phase_bad_slices(t0, dev, streams):
     return ok
 
 
+# the thumbnails phase's small clips (4x3 MBs, one picture each): one
+# clean, one whose slice data is spoiled after its headers; both share a
+# bucket, apart from the 1080p clips' bucket
+THUMB_SMALL_KW = dict(width_mbs=4, height_mbs=3, n_pictures=1, seed=31,
+                      profile=100, transform_8x8=True,
+                      mb_kinds=("i16", "i4", "i8"))
+THUMB_BAD_SEED = 32
+# SHA-256 of the JAX package's native JPEG (quality 75) of each 1080p
+# CAVLC picture, of the (Y, Cb, Cr) of the small clip's picture from its
+# decode_annexb(engine="fused"), and of the JAX package's mv_extract of
+# the video track of write_mp4(<the 16-picture CAVLC batch>) to ES
+JPEG_DIGESTS = [
+    "11d58ab347018e685a4eb79e65b8f0e511857702fceddf628d675becb8d8930a",
+    "a1b013532bd4e70639c40ddb32055798c82b413e5de92fbf12a9ec5d2cb75c3f",
+]
+SMALL_DIGESTS = [
+    "56606e3ab88eeb42b1458a6b82310455fd5f7dc33dcff3ccca8e8726e6d90978",
+    "21aec9f7ae6293c515076cd5f5b759195c5d224ff8dd8dd20802a87d8d18396f",
+    "d6be7e1faf4e05c82e814dd615cf4c72f98198acf89fa9fb969931ccde3f4558",
+]
+ES_SHA256 = ("3fbd3bac4cbeda4f0d2e25a98199f6c8"
+             "23412ad658d0d33db1f245b633d9186f")
+
+
+def spoil(data):
+    """`data` with every third byte of its last third flipped: the
+    headers parse, the slice data does not (tests/test_parallel.py)."""
+    out = bytearray(data)
+    for pos in range(len(out) * 2 // 3, len(out) - 8, 3):
+        out[pos] ^= 0xFF
+    return bytes(out)
+
+
+def picture_stream(data, k):
+    """The Annex-B stream `data` (one slice per picture) with its IDR
+    access unit k alone: parameter sets, that picture, trailing NALUs."""
+    from minivideo_tpu_torch.models.h264.nalu import split_annexb
+    units = [raw for _, raw in split_annexb(data)]
+    idr = [i for i, u in enumerate(units) if u[0] & 0x1F == 5]
+    keep = units[:idr[0]] + [units[idr[k]]] + units[idr[-1] + 1:]
+    return b"".join(b"\x00\x00\x00\x01" + u for u in keep)
+
+
+def png_pixels(path):
+    """RGB8 pixels [H, W, 3] of a PNG file, inflated with zlib and
+    unfiltered in numpy (filter types None, Sub and Up: the ones the
+    writers use; no interlace)."""
+    import struct
+    import zlib
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = hdr
+    if (depth, ctype, interlace) != (8, 2, 0):
+        raise ValueError(f"{path}: not 8-bit RGB without interlace")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)),
+                        np.uint8).reshape(h, 1 + 3 * w)
+    out = np.empty((h, 3 * w), np.uint8)
+    prev = np.zeros(3 * w, np.uint8)
+    for r in range(h):
+        kind, row = raw[r, 0], raw[r, 1:]
+        if kind == 0:
+            cur = row
+        elif kind == 1:         # Sub: add the pixel to the left, mod 256
+            cur = np.cumsum(row.reshape(w, 3), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif kind == 2:         # Up
+            cur = row + prev
+        else:
+            raise ValueError(f"{path}: PNG filter {kind} not supported")
+        out[r] = cur
+        prev = out[r]
+    return out.reshape(h, w, 3)
+
+
+def yuv_planes(path, h, w):
+    """(Y, Cb, Cr) of a planar 4:2:0 file of h x w luma."""
+    import numpy as np
+    raw = np.fromfile(path, np.uint8)
+    if raw.size != h * w * 3 // 2:
+        raise ValueError(f"{path}: {raw.size} bytes, not {h}x{w} 4:2:0")
+    c = h * w // 4
+    return (raw[:h * w].reshape(h, w),
+            raw[h * w:h * w + c].reshape(h // 2, w // 2),
+            raw[h * w + c:].reshape(h // 2, w // 2))
+
+
+def batch_run(clips, outdir, fmt, **kw):
+    """batch_thumbnail on the card: (BatchResult, its StageTimer, host
+    seconds of the call, the _Recon calls as [(PackedFrames, planes)]).
+    batch_thumbnail imports StageTimer from profiling at each call, so
+    the class is wrapped there to read its stages, and _Recon's call to
+    keep the buckets' staging and planes."""
+    from minivideo_tpu_torch import profiling
+    from minivideo_tpu_torch.codecs import PictureFormat
+    from minivideo_tpu_torch.parallel import batch
+    real_timer, real_recon = profiling.StageTimer, batch._Recon.__call__
+    timers, recons = [], []
+
+    class Timer(real_timer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    def recon(self, packed, **k):
+        out = real_recon(self, packed, **k)
+        recons.append((packed, out[:3]))
+        return out
+
+    profiling.StageTimer, batch._Recon.__call__ = Timer, recon
+    try:
+        t = time.perf_counter()
+        res = batch.batch_thumbnail(clips, outdir,
+                                    fmt=PictureFormat[fmt], **kw)
+        secs = time.perf_counter() - t
+    finally:
+        profiling.StageTimer, batch._Recon.__call__ = real_timer, real_recon
+    return res, timers[0], secs, recons
+
+
+def write_thumbnail_clips(tmp, streams):
+    """The thumbnails phase's files in `tmp`: the two 1080p CAVLC
+    pictures alternating in 8 MP4, 4 Matroska and 4 MPEG-TS files, the
+    CABAC batch's first picture in an MP4, the small clip and the
+    corrupt one.  Returns (clips, {clip: (plane digests, RGB digest or
+    None, JPEG digest or None)} for every clip but the corrupt one)."""
+    from minivideo_tpu_torch.testing import containers as C
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    h, w = 16 * STREAM_KW["height_mbs"], 16 * STREAM_KW["width_mbs"]
+    files, want = [], {}
+    writers = [("mp4", lambda s: C.write_mp4(s, w, h))] * 8 + \
+        [("mkv", lambda s: C.write_mkv(s, w, h))] * 4 + \
+        [("ts", C.write_ts)] * 4
+    # the 1080p batches' first two access units are the two pictures
+    for i, (ext, write) in enumerate(writers):
+        name = f"cavlc{i:02d}.{ext}"
+        files.append((name, write(picture_stream(streams["cavlc"], i % 2))))
+        want[name] = (JAX_DIGESTS[i % 2], RGB_DIGESTS[i % 2],
+                      JPEG_DIGESTS[i % 2])
+    files.append(("cabac.mp4", C.write_mp4(
+        picture_stream(streams["cabac"], 0), w, h)))
+    want["cabac.mp4"] = (CABAC_DIGESTS[0], None, None)
+    files.append(("small.264", make_stream(**THUMB_SMALL_KW)))
+    want["small.264"] = (SMALL_DIGESTS, None, None)
+    files.append(("corrupt.264", spoil(make_stream(
+        **dict(THUMB_SMALL_KW, seed=THUMB_BAD_SEED)))))
+    clips = []
+    for name, data in files:
+        clips.append(os.path.join(tmp, name))
+        with open(clips[-1], "wb") as f:
+            f.write(data)
+    return clips, {os.path.join(tmp, k): v for k, v in want.items()}
+
+
+def thumbnail_files_ok(fmt, res, want, planes):
+    """Whether every good clip's file holds its pinned digest: YUV420
+    planes (kept in `planes` for the later formats), PNG pixels, JPEG
+    bytes.  The CABAC and small clips have no pinned RGB or JPEG: theirs
+    must equal the host converter's and the native JPEG of their
+    YUV420 planes.  Returns (ok, bytes written)."""
+    import numpy as np
+    from minivideo_tpu_torch import native
+    from minivideo_tpu_torch.export.image import yuv420_to_rgb_py
+    outs = {os.path.splitext(os.path.basename(o))[0]: o
+            for o in res.outputs}
+    ok, nbytes = True, 0
+    for clip, (digest, rgb_digest, jpeg_digest) in want.items():
+        o = outs.get(os.path.splitext(os.path.basename(clip))[0])
+        if o is None:
+            ok = False
+            continue
+        nbytes += os.path.getsize(o)
+        if fmt == "YUV420":
+            small = clip.endswith("small.264")
+            kw = THUMB_SMALL_KW if small else STREAM_KW
+            planes[clip] = yuv_planes(o, 16 * kw["height_mbs"],
+                                      16 * kw["width_mbs"])
+            ok = ok and [sha(p) for p in planes[clip]] == digest
+        elif fmt == "PNG":
+            px = png_pixels(o)
+            ok = ok and (sha(px) == rgb_digest if rgb_digest else
+                         np.array_equal(px, yuv420_to_rgb_py(*planes[clip])))
+        else:
+            with open(o, "rb") as f:
+                got = hashlib.sha256(f.read()).hexdigest()
+            ok = ok and got == (jpeg_digest or hashlib.sha256(
+                native.encode_jpeg_native(*planes[clip], 75)).hexdigest())
+    return ok, nbytes
+
+
+def small_bucket_check(recons, dev):
+    """The small bucket of a batch_thumbnail run: its rows that came out
+    all black, and the wave kernel against its plain version on its
+    staging on the card (max |err|)."""
+    from minivideo_tpu_torch.ops import recon_fused
+    packed, planes = next((pk, pl) for pk, pl in recons
+                          if pk.wmb == THUMB_SMALL_KW["width_mbs"])
+    black = [i for i in range(planes[0].shape[0])
+             if not any(p[i].any() for p in planes)]
+    pk = recon_fused.to_device(packed, dev)
+    if pk.slots == 2:
+        arrs = [pk.arrays[k] for k in recon_fused.DEVICE_STAGING]
+    else:
+        arrs = recon_fused.records_feeds(pk.arrays, *pk.chroma_qp_off,
+                                         pk.wmb, pk.hmb, pk.batch)
+    return black, compare_kernel(pk, arrs)[0]
+
+
+def thumbnail_host_costs(t0, dev, streams):
+    """RGB of the 16 read-back 1080p pictures on the card (op plus its
+    readback) against the native host converter, and PNG encoding as the
+    export pool runs it against one band per picture and one worker.
+    Returns whether the card's RGB equals the host converter's."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from minivideo_tpu_torch import native
+    from minivideo_tpu_torch.export.image import yuv420_to_rgb
+    from minivideo_tpu_torch.ops import recon_fused
+    from minivideo_tpu_torch.ops.color import yuv420_to_rgb_device
+    packed, _, _ = staged(streams["cavlc"], dev)
+    dplanes = recon_fused.reconstruct_frames_fused(packed, dev)
+    host = [p.cpu().numpy() for p in dplanes]
+
+    def card_rgb():
+        return yuv420_to_rgb_device(*dplanes).cpu()
+
+    def host_rgb():
+        return [yuv420_to_rgb(host[0][i], host[1][i], host[2][i])
+                for i in range(BATCH)]
+
+    rgbs = host_rgb()
+    same = all(np.array_equal(a.numpy(), b)
+               for a, b in zip(card_rgb(), rgbs))
+    card_s, host_s = median_s(card_rgb), median_s(host_rgb)
+    readback_s = median_s(lambda: [p.cpu() for p in dplanes])
+    log("thumbnails", t0, f"RGB of {BATCH} read-back 1080p pictures: card "
+        f"op + its readback ({dplanes[0].numel() * 3} bytes) "
+        f"{card_s * 1e3:.1f} ms, native host converter (export.cc, one "
+        f"thread) {host_s * 1e3:.1f} ms, planes' readback alone "
+        f"{readback_s * 1e3:.1f} ms (host clock, median of 3); RGB "
+        f"{'=' if same else '!='} " + ("ok" if same else "FAILED"))
+
+    # batch_thumbnail's export pool: 8 workers, each deflating one band
+    # per hardware thread (encode_png_native(threads=0))
+    def png_all(workers, threads):
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            list(ex.map(lambda r: native.encode_png_native(r, 3, threads),
+                        rgbs))
+
+    png_s = {(wk, th): median_s(lambda: png_all(wk, th))
+             for wk, th in ((8, 0), (8, 1), (1, 0))}
+    log("thumbnails", t0, f"native PNG of the {BATCH} pictures (host clock, "
+        f"s, median of 3; threads=0 is one band per hardware thread, "
+        f"{os.cpu_count()} here): "
+        + ", ".join(f"{wk} workers x threads={th} {v:.4f}"
+                    for (wk, th), v in png_s.items()))
+    return same
+
+
+def thumbnail_cli_and_extract(t0, tmp, streams):
+    """The thumbnailer CLI (-n 16 -f png) on the 16-picture CAVLC MP4,
+    then mv_extract of its video track to ES, decoded on the card."""
+    import contextlib
+    import io
+    from minivideo_tpu_torch.api import mv_close, mv_extract, mv_open, mv_parse
+    from minivideo_tpu_torch.apps import thumbnailer
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.testing import containers as C
+    h, w = 16 * STREAM_KW["height_mbs"], 16 * STREAM_KW["width_mbs"]
+    mp4 = os.path.join(tmp, "cavlc16.mp4")
+    with open(mp4, "wb") as f:
+        f.write(C.write_mp4(streams["cavlc"], w, h))
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        (rc, launches) = decode_counted(lambda: thumbnailer.main(
+            ["-i", mp4, "-o", os.path.join(tmp, "cli"), "-n", "16",
+             "-f", "png"]))
+    cli_s = time.perf_counter() - t
+    files = buf.getvalue().split()
+    pixels_ok = [sha(png_pixels(p)) for p in files] == \
+        [RGB_DIGESTS[i % 2] for i in range(BATCH)]
+    ok = rc == 0 and launches == 1 and pixels_ok
+    log("thumbnails", t0, f"thumbnailer -n 16 -f png: exit {rc}, "
+        f"{len(files)} files in {cli_s:.3f} s (host clock, one run), "
+        f"pixels {'=' if pixels_ok else '!='} RGB_DIGESTS, launches "
+        f"{launches} (want 1) " + ("ok" if ok else "FAILED"))
+
+    media = mv_open(mp4)
+    try:
+        if not mv_parse(media, audio=False, subs=False):
+            raise RuntimeError(f"mv_parse failed on {mp4}")
+        es = mv_extract(media, media.tracks_video[0], tmp, "es")
+    finally:
+        mv_close(media)
+    with open(es, "rb") as f:
+        es_data = f.read()
+    es_ok = hashlib.sha256(es_data).hexdigest() == ES_SHA256
+    pics, launches = decode_counted(lambda: decode_annexb(es_data))
+    pics_ok = digests(pics) == [JAX_DIGESTS[i % 2] for i in range(BATCH)]
+    good = es_ok and pics_ok and launches == 1
+    log("thumbnails", t0, f"mv_extract to ES: {os.path.basename(es)} "
+        f"{len(es_data)} bytes, sha256 {'=' if es_ok else '!='} pinned; "
+        f"decoded {len(pics)} pictures {'=' if pics_ok else '!='} JAX "
+        f"digests, launches {launches} (want 1) "
+        + ("ok" if good else "FAILED"))
+    return ok and good
+
+
+def phase_thumbnails(t0, dev, streams):
+    """Thumbnails from 1080p files on the card: batch_thumbnail over 16
+    CAVLC files (MP4, Matroska, MPEG-TS), the CABAC MP4 and two small
+    clips, one of them corrupt, per format (YUV420, PNG, JPG: checked on
+    the first of 3 timed runs, YUV420's then resumed); the host costs
+    of RGB and PNG; the thumbnailer CLI; mv_extract."""
+    import shutil
+    import tempfile
+    from minivideo_tpu_torch.ops import recon_fused
+    ok = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_thumbs_")
+    try:
+        clips, want = write_thumbnail_clips(tmp, streams)
+        bad, n_good = clips[-1], len(clips) - 1
+        runs, planes = {}, {}
+        for fmt in ("YUV420", "PNG", "JPG"):
+            runs[fmt] = []
+            for rep in range(3):
+                out = os.path.join(tmp, f"{fmt}{rep}")
+                (res, timer, secs, recons), launches = decode_counted(
+                    lambda: batch_run(clips, out, fmt))
+                runs[fmt].append((timer, secs, launches))
+                if rep:
+                    shutil.rmtree(out)
+                    continue
+                files_ok, nbytes = thumbnail_files_ok(fmt, res, want,
+                                                      planes)
+                black, err_small = small_bucket_check(recons, dev)
+                good = (files_ok and res.done == n_good and res.failed == 1
+                        and res.skipped == 0 and launches == 2
+                        and list(res.errors) == [bad] and black == [1]
+                        and err_small == 0)
+                ok = ok and good
+                log("thumbnails", t0, f"batch_thumbnail {fmt}: "
+                    f"{res.done} done, {res.failed} failed "
+                    f"({[os.path.basename(p) for p in res.errors]}), "
+                    f"{res.frames} frames, {len(res.outputs)} files "
+                    f"({nbytes} bytes), every file "
+                    f"{'=' if files_ok else '!='} its pinned digest, "
+                    f"wave_kernel launches {launches} (want 2, one per "
+                    f"bucket); small bucket: black rows {black} (want [1], "
+                    f"the corrupt clip), kernel vs plain max|err| "
+                    f"{err_small} " + ("ok" if good else "FAILED"))
+                if fmt == "YUV420":
+                    # a second call on the same directory skips every done
+                    # clip and retries the corrupt one
+                    (again, _, _, _), launches = decode_counted(
+                        lambda: batch_run(clips, out, fmt))
+                    good = (again.skipped == n_good and again.done == 0
+                            and again.failed == 1)
+                    ok = ok and good
+                    log("thumbnails", t0, f"resume: skipped "
+                        f"{again.skipped} (want {n_good}), done "
+                        f"{again.done}, failed {again.failed}, launches "
+                        f"{launches} " + ("ok" if good else "FAILED"))
+        for fmt, rs in runs.items():
+            stages = {k: statistics.median(r[0].acc[k] for r in rs)
+                      for k in rs[0][0].acc}
+            wall = statistics.median(r[1] for r in rs)
+            log("thumbnails", t0, f"{fmt} timing (host clock, s, median of "
+                f"3 batches of {len(clips)} clips, {n_good} thumbnails): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+                + f"; batch_thumbnail {wall:.4f} s, "
+                f"{n_good / wall:.2f} thumbnails/s; launches per batch "
+                f"{[r[2] for r in rs]}")
+        ok = thumbnail_host_costs(t0, dev, streams) and ok
+        ok = thumbnail_cli_and_extract(t0, tmp, streams) and ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
 def main():
     t0 = time.time()
     failed = []
@@ -792,6 +1205,7 @@ def main():
     threads = [threading.Thread(target=build, args=a) for a in
                (("entropy.cc (g++)", native.build),
                 ("demux.cc (g++)", native.build_demux),
+                ("export.cc (g++ -march=native, zlib)", native.build_export),
                 ("csrc/*.cu (nvcc sm_90a, one per source, then link)",
                  kernels.build))]
     for th in threads:
@@ -972,14 +1386,15 @@ def main():
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
 
-    # ---- 8.-12. CABAC, containers, staging layouts, Python parsers, bad
-    # slices
+    # ---- 8.-13. CABAC, containers, staging layouts, Python parsers, bad
+    # slices, thumbnails
     streams = {"cavlc": stream}            # the 1080p batches of 16
     for name, phase in (("cabac", phase_cabac),
                         ("containers", phase_containers),
                         ("staging", phase_staging),
                         ("parsers", phase_parsers),
-                        ("bad slices", phase_bad_slices)):
+                        ("bad slices", phase_bad_slices),
+                        ("thumbnails", phase_thumbnails)):
         if not phase(t0, dev, streams):
             failed.append(name)
 

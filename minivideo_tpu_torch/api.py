@@ -1,10 +1,10 @@
 """Public API: the lifecycle facade (minivideo_tpu/api.py).
 
 Reference: minivideo/src/minivideo.{c,h} — minivideo_open (:192),
-minivideo_parse (:199), minivideo_decode (:255), minivideo_close (:343).
-minivideo_extract (:307) needs the muxer, which the port does not have
-yet.  Opening and demuxing are host code and import no torch; mv_decode
-imports the decoder when it is called.
+minivideo_parse (:199), minivideo_decode (:255), minivideo_extract
+(:307), minivideo_close (:343).  Opening, demuxing and extracting are
+host code and import no torch; mv_decode imports the decoder when it is
+called.
 """
 
 from __future__ import annotations
@@ -104,6 +104,13 @@ def mv_decode(media: MediaFile, picture_number: int = 1,
                 (b"\x00\x00\x01", b"\x00\x00\x00\x01")) else raw
     return decode_annexb(bytes(out), max_pictures=picture_number,
                          engine=engine, device=device, want_rgb=want_rgb)
+
+
+def mv_extract(media: MediaFile, track: Track, out_path: str,
+               output_format: str = "es") -> str:
+    """Extract a track to an ES or PES file (minivideo_extract)."""
+    from .muxer.muxer import export_samples
+    return export_samples(media, track, out_path, output_format)
 
 
 def mv_close(media: MediaFile) -> None:

@@ -1,21 +1,25 @@
 """ctypes bindings of the native host libraries: the entropy parser
-(src/entropy.cc) and the demuxer (src/demux.cc, bound by
-containers/native.py).
+(src/entropy.cc), the demuxer (src/demux.cc, bound by
+containers/native.py) and the picture encoders (src/export.cc, bound
+here for export/image.py).
 
 Each is built from the sources in this package at first use, as its own
-library (`g++ -O3 -fPIC -shared -std=c++17`, -pthread for the parser,
-see _build.py), and loaded from the package's ignored build directory; a
-failed build raises.  Three parses are bound, one per staging layout of
-ops/recon.py: `parse_slice_native` (raster: the full FrameSyntax arrays,
-a drop-in for the Python parsers), `parse_slice_native_slab` (slot
-records) and `parse_slice_native_slab2` (device layout, with the meta
-rows).
+library (`g++ -O3 -fPIC -shared -std=c++17`, -pthread for the parser;
+the encoders with the JAX package's Makefile flags and zlib, see
+`build_export`; _build.py), and loaded from the package's ignored build
+directory; a failed build raises.  Three parses are bound, one per
+staging layout of ops/recon.py: `parse_slice_native` (raster: the full
+FrameSyntax arrays, a drop-in for the Python parsers),
+`parse_slice_native_slab` (slot records) and `parse_slice_native_slab2`
+(device layout, with the meta rows).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+import subprocess
 
 import numpy as np
 
@@ -26,8 +30,10 @@ from ..models.h264.syntax import KIND_IPCM
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
                     "entropy.cc")
 _DEMUX_SRC = os.path.join(os.path.dirname(_SRC), "demux.cc")
+_EXPORT_SRC = os.path.join(os.path.dirname(_SRC), "export.cc")
 _lib = None
 _demux_lib = None
+_export_lib = None
 
 
 def _cmd(out, sources):
@@ -54,6 +60,136 @@ def load_demux():
     if _demux_lib is None:
         _demux_lib = ctypes.CDLL(build_demux())
     return _demux_lib
+
+
+@functools.lru_cache(maxsize=None)
+def _march() -> list:
+    """["-march=native"] where the compiler takes it, else [] (the JAX
+    package's Makefile test, minivideo_tpu/native/Makefile)."""
+    r = subprocess.run(["g++", "-march=native", "-E", "-x", "c", os.devnull],
+                       capture_output=True, timeout=60)
+    return ["-march=native"] if r.returncode == 0 else []
+
+
+def _export_cmd(out, sources):
+    return ["g++", "-O3", *_march(), "-fPIC", "-std=c++17", "-pthread",
+            "-Wall", "-Wextra", "-Wno-unused-parameter", "-shared",
+            "-o", out, *sources, "-lz"]
+
+
+def build_export() -> str:
+    """Compile the picture encoders if their build is missing, with the
+    JAX package's Makefile flags (-O3, -march=native where the compiler
+    takes it, -std=c++17 -pthread) and zlib; returns the .so path."""
+    return build_shared("mvt_export", [_EXPORT_SRC], _export_cmd)
+
+
+def load_export():
+    """Load (building if needed) the picture-encoder library."""
+    global _export_lib
+    if _export_lib is not None:
+        return _export_lib
+    lib = ctypes.CDLL(build_export())
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32 = ctypes.c_int32
+    lib.mv_yuv420_to_rgb.restype = None
+    lib.mv_yuv420_to_rgb.argtypes = [u8p, u8p, u8p, i32, i32, i32, i32,
+                                     u8p]
+    lib.mv_encode_jpeg.restype = ctypes.c_int64
+    lib.mv_encode_jpeg.argtypes = [u8p, u8p, u8p, i32, i32, i32, i32,
+                                   i32, u8p, ctypes.c_int64]
+    lib.mv_encode_png.restype = ctypes.c_int64
+    lib.mv_encode_png.argtypes = [u8p, i32, i32, i32, i32, u8p,
+                                  ctypes.c_int64]
+    for enc in (lib.mv_encode_bmp, lib.mv_encode_tga):
+        enc.restype = ctypes.c_int64
+        enc.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32, u8p,
+                        ctypes.c_int64]
+    _export_lib = lib
+    return lib
+
+
+def _u8p(arr):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _c(arr):
+    a = np.ascontiguousarray(arr)
+    if a.dtype != np.uint8:
+        raise TypeError(f"expected uint8 samples, got {a.dtype}")
+    return a
+
+
+def yuv420_to_rgb_native(y, cb, cr) -> np.ndarray:
+    """Planar 4:2:0 -> interleaved RGB888 (integer BT.601; bit-exact with
+    export/image.py yuv420_to_rgb_py — the reference's mb_to_rgb math,
+    export_utils.c:297-304)."""
+    lib = load_export()
+    y, cb, cr = _c(y), _c(cb), _c(cr)
+    h, w = y.shape
+    ch, cw = cb.shape
+    out = np.empty((h, w, 3), np.uint8)
+    lib.mv_yuv420_to_rgb(_u8p(y), _u8p(cb), _u8p(cr), h, w, ch, cw,
+                         _u8p(out))
+    return out
+
+
+def encode_jpeg_native(y, cb, cr, quality: int = 75) -> bytes:
+    """Baseline JPEG (4:2:0) straight from decoded planes; C-speed
+    equivalent of the reference's libjpeg path (export.c:341-445)."""
+    lib = load_export()
+    y, cb, cr = _c(y), _c(cb), _c(cr)
+    h, w = y.shape
+    ch, cw = cb.shape
+    cap = h * w * 3 + (1 << 16)
+    out = np.empty(cap, np.uint8)
+    n = lib.mv_encode_jpeg(_u8p(y), _u8p(cb), _u8p(cr), h, w, ch, cw,
+                           quality, _u8p(out), cap)
+    if n < 0:
+        raise RuntimeError(f"native JPEG encode failed (code {n})")
+    return out[:n].tobytes()
+
+
+def encode_png_native(rgb, level: int = 3, threads: int = 0) -> bytes:
+    """PNG RGB8: per-row sub filtering + banded parallel deflate (raw
+    bands joined at Z_FULL_FLUSH byte boundaries, adler32_combine
+    trailer).  threads=0 = one band per hardware thread, so the bytes
+    (not the pixels) depend on the host's thread count.  Reference:
+    export.c:447-551 (libpng/stb single-thread writers)."""
+    lib = load_export()
+    rgb = _c(rgb)
+    h, w, _ = rgb.shape
+    cap = h * (w * 3 + 1) + (h * w // 100) + (1 << 16)
+    out = np.empty(cap, np.uint8)
+    n = lib.mv_encode_png(_u8p(rgb), h, w, level, threads, _u8p(out),
+                          cap)
+    if n < 0:
+        raise RuntimeError(f"native PNG encode failed (code {n})")
+    return out[:n].tobytes()
+
+
+def encode_bmp_native(rgb) -> bytes:
+    lib = load_export()
+    rgb = _c(rgb)
+    h, w, _ = rgb.shape
+    cap = 54 + (w * 3 + 3) // 4 * 4 * h
+    out = np.empty(cap, np.uint8)
+    n = lib.mv_encode_bmp(_u8p(rgb), h, w, _u8p(out), cap)
+    if n < 0:
+        raise RuntimeError(f"native BMP encode failed (code {n})")
+    return out[:n].tobytes()
+
+
+def encode_tga_native(rgb) -> bytes:
+    lib = load_export()
+    rgb = _c(rgb)
+    h, w, _ = rgb.shape
+    cap = 18 + h * w * 3
+    out = np.empty(cap, np.uint8)
+    n = lib.mv_encode_tga(_u8p(rgb), h, w, _u8p(out), cap)
+    if n < 0:
+        raise RuntimeError(f"native TGA encode failed (code {n})")
+    return out[:n].tobytes()
 
 
 def load():

@@ -1,0 +1,434 @@
+"""Batch thumbnailing on one device: N clips -> thumbnails.
+
+Port of minivideo_tpu/parallel/batch.py, on one device.  This is the
+batch equivalent of running the reference's mini_thumbnailer once per
+file (SURVEY.md §2.6: the reference is single threaded; the workload is
+embarrassingly parallel across clips).  The pipeline has four stages:
+
+  host demux   — container parse + IDR selection + slice headers per
+                 clip on a thread pool;
+  host entropy — all selected frames of a geometry bucket entropy-
+                 decode straight into ONE slab staging batch (the device
+                 or records layout, settings.staging_mode), every
+                 picture fanned across the pool (the native C++ parser
+                 releases the GIL); per-frame parse failures zero that
+                 frame (parsed=0 rows reconstruct as black) and fail
+                 only the owning clip.  Under MINIVIDEO_TPU_NO_NATIVE=1
+                 the clips are parsed with the Python parsers into
+                 raster staging instead;
+  device recon — the bucket batch is copied to the device and runs the
+                 fused engine once: csrc/wave_kernel.cu on the card, its
+                 plain PyTorch version on the CPU; for RGB formats the
+                 planes are converted there (ops/color.py) and read back
+                 with the RGB;
+  host export  — image encode + write on a thread pool.
+
+Failure isolation: any per-clip exception is caught, recorded in the
+Manifest, and the batch continues (reference analogue: jumpy_* resync +
+the 64-error tolerance, h264.c:181-187 — but scoped per clip, not
+per NALU).  Resume: clips already marked done in the manifest are
+skipped.
+
+Where the port differs from the JAX module: it runs on one device
+(`device`, the card unless the caller names another, as mv_decode), so
+there is no mesh and no padding of the batch to a mesh multiple; the
+process index and count default to 0 and 1; the JAX compile cache has
+no counterpart; and the RGB of RGB formats is converted before the
+readback instead of after it.  The decoder is imported only when the
+function is called, so importing this module loads no torch.
+"""
+
+from __future__ import annotations
+
+import os
+import traceback
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from .. import trace
+from ..codecs import PictureFormat, PictureRepartition
+from .manifest import Manifest
+
+_RGB_FORMATS = (PictureFormat.PNG, PictureFormat.BMP, PictureFormat.TGA)
+
+
+@dataclass
+class ParsedClip:
+    path: str
+    frames: list            # [(FrameSyntax, slice_of_mb), ...]
+    sps: object
+    pps: object
+    file_name: str
+
+
+@dataclass
+class DemuxedClip:
+    path: str
+    pictures: list          # [[(nalu, slice_header), ...], ...]
+    sps: object
+    pps: object
+    file_name: str
+
+
+@dataclass
+class BatchResult:
+    done: int = 0
+    failed: int = 0
+    skipped: int = 0
+    frames: int = 0
+    outputs: list = field(default_factory=list)
+    errors: dict = field(default_factory=dict)
+
+
+def _demux_groups(path: str, pictures: int, mode, device):
+    """Demux one clip, select IDR pictures, return (decoder-with-
+    paramsets, NALU groups, file_name)."""
+    from ..api import mv_close, mv_open, mv_parse
+    from ..containers.filter import idr_filtering
+    from ..containers.mp4 import avcc_to_annexb
+    from ..codecs import Codec, Container
+    from ..models.h264.decoder import H264Decoder, group_idr_access_units
+    from ..models.h264.nalu import parse_nalu, split_annexb
+    from ..models.h264.params import UnsupportedStream
+
+    media = mv_open(path)
+    try:
+        if not mv_parse(media, audio=False, video=True, subs=False):
+            raise ValueError("container parse failed")
+        if not media.tracks_video:
+            raise ValueError("no video track")
+        track = media.tracks_video[0]
+        if track.stream_codec not in (Codec.H264, Codec.UNKNOWN):
+            raise UnsupportedStream(
+                f"{track.stream_codec.name} (H.264 intra only)")
+        selected = idr_filtering(track, pictures, mode)
+        if len(selected) == 0:
+            raise ValueError("no IDR pictures found")
+
+        fh = media.file_handle
+        length_prefixed = (track.length_prefixed
+                           or media.container == Container.MP4)
+        out = bytearray()
+        for ps in track.parameter_sets:
+            out += b"\x00\x00\x00\x01" + ps
+        for i in track.param_indices():
+            raw = track.read_sample(fh, i)
+            if not length_prefixed:
+                out += (raw if raw.startswith((b"\x00\x00\x01",
+                                               b"\x00\x00\x00\x01"))
+                        else b"\x00\x00\x00\x01" + raw)
+        for i in selected:
+            raw = track.read_sample(fh, int(i))
+            if length_prefixed:
+                out += avcc_to_annexb(
+                    raw, getattr(track, "nal_length_size", 4))
+            else:
+                out += (raw if raw.startswith((b"\x00\x00\x01",
+                                               b"\x00\x00\x00\x01"))
+                        else b"\x00\x00\x00\x01" + raw)
+
+        # the decoder holds the parameter sets and parses on the host;
+        # it never reconstructs (that is _Recon's, per bucket)
+        dec = H264Decoder(device=device)
+        nalus = [parse_nalu(r, off) for off, r in split_annexb(bytes(out))]
+        for n in nalus:
+            if n.nal_unit_type in (7, 8):      # SPS / PPS
+                dec.feed_nalu(n)
+        groups = group_idr_access_units(nalus)[:pictures]
+        if not groups:
+            raise ValueError("no decodable IDR access units")
+        return dec, groups, media.file_name
+    finally:
+        mv_close(media)
+
+
+def _parse_clip(path: str, pictures: int, mode, device) -> ParsedClip:
+    """Demux + entropy-parse one clip's selected IDR pictures (host;
+    raster path — the MINIVIDEO_TPU_NO_NATIVE=1 route)."""
+    dec, groups, file_name = _demux_groups(path, pictures, mode, device)
+    frames = []
+    sps = pps = None
+    for group in groups:
+        fs, sps, pps, som = dec.parse_idr_syntax(group)
+        frames.append((fs, som))
+    return ParsedClip(path, frames, sps, pps, file_name)
+
+
+def _demux_clip(path: str, pictures: int, mode, device) -> DemuxedClip:
+    """Demux one clip + parse its slice headers (no entropy decode —
+    that happens bucket-wide, straight into slab staging)."""
+    from ..models.h264.slicehdr import parse_slice_header
+    dec, groups, file_name = _demux_groups(path, pictures, mode, device)
+    pics = []
+    sps = pps = None
+    for group in groups:
+        pic = []
+        for nalu in group:
+            sh, sps, pps = parse_slice_header(
+                nalu.rbsp, nalu.nal_unit_type, nalu.nal_ref_idc,
+                dec.sps_map, dec.pps_map)
+            pic.append((nalu, sh))
+        pics.append(pic)
+    return DemuxedClip(path, pics, sps, pps, file_name)
+
+
+def _parse_bucket_slab(dcs, pool, staging_mode):
+    """Entropy-decode every selected frame of a geometry bucket into ONE
+    slab staging batch.  Frames fan across `pool`; a parse failure
+    ZEROES that frame's rows (parsed=0 reconstructs as black) and
+    reports the owning clip instead of failing the bucket.
+
+    Returns (PackedFrames, owners=[(clip, frame_idx)], failed={path:
+    error})."""
+    from ..models.h264.syntax import FrameSyntax
+    from ..native import (parse_slice_native_slab,
+                          parse_slice_native_slab2)
+    from ..ops.recon import (make_slab_staging, make_slab_staging2,
+                             pack_frames_slots, pack_frames_slots2)
+    sps = dcs[0].sps
+    wmb, hmb = sps.pic_width_in_mbs, sps.pic_height_in_map_units
+    rows = [(dc, fi) for dc in dcs for fi in range(len(dc.pictures))]
+    B = len(rows)
+    mk = make_slab_staging2 if staging_mode == "device" else \
+        make_slab_staging
+    staging = mk(wmb, hmb, B)
+    fss = [FrameSyntax(wmb, hmb, lite=True) for _ in range(B)]
+    failed: dict = {}
+
+    def parse_frame(i):
+        dc, fi = rows[i]
+        pps = dc.pps
+        for nalu, sh in dc.pictures[fi]:
+            if staging_mode == "device":
+                parse_slice_native_slab2(
+                    fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
+                    sh.first_mb_in_slice, sh.qp,
+                    bool(pps.entropy_coding_mode_flag),
+                    bool(pps.transform_8x8_mode_flag),
+                    cb_qp_off=pps.chroma_qp_index_offset,
+                    cr_qp_off=pps.second_chroma_qp_index_offset)
+            else:
+                parse_slice_native_slab(
+                    fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
+                    sh.first_mb_in_slice, sh.qp,
+                    bool(pps.entropy_coding_mode_flag),
+                    bool(pps.transform_8x8_mode_flag))
+
+    futs = {pool.submit(parse_frame, i): i for i in range(B)}
+    for fut, i in futs.items():
+        try:
+            fut.result()
+        except Exception as e:             # noqa: BLE001 — isolation
+            dc, fi = rows[i]
+            failed[dc.path] = f"{type(e).__name__}: {e}"
+            fss[i].parsed[:] = 0           # frame reconstructs as black
+            if staging_mode == "device":
+                staging["meta_slab"][i][:] = 0
+
+    owners = rows
+    if staging_mode == "device":
+        packed = pack_frames_slots2(staging, sps, dcs[0].pps)
+    else:
+        packed = pack_frames_slots(staging, [(fs, None) for fs in fss],
+                                   sps, dcs[0].pps)
+    return packed, owners, failed
+
+
+class _Recon:
+    """The bucket reconstruction on one device: the staging copy
+    (ops/recon_fused.to_device), the fused engine (reconstruct_frames_
+    fused: wave_kernel.cu on the card, the plain loop on the CPU), the
+    RGB conversion there when asked, and the readback.  The JAX class
+    caches one jitted, sharded function per (geometry, batch, features,
+    layout); the port's reconstructors compile nothing per shape (the
+    CUDA library is built once per checkout), so there is nothing to
+    cache."""
+
+    def __init__(self, device, engine: str):
+        from ..models.h264.decoder import resolve_engine
+        self.device = device
+        self.engine = resolve_engine(engine)
+
+    def __call__(self, packed, want_rgb: bool = False):
+        """packed: PackedFrames (any staging layout) -> (Y, Cb, Cr,
+        RGB or None) numpy, one row per frame."""
+        from ..ops.color import yuv420_to_rgb_device
+        from ..ops.recon_fused import reconstruct_frames_fused, to_device
+        planes = reconstruct_frames_fused(to_device(packed, self.device),
+                                          self.device)
+        rgb = (yuv420_to_rgb_device(*planes).cpu().numpy()
+               if want_rgb else None)
+        return (*(p.cpu().numpy() for p in planes), rgb)
+
+
+def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
+                    mode=PictureRepartition.UNFILTERED,
+                    fmt=PictureFormat.PNG, quality: int = 75,
+                    device=None, engine: str = "fused",
+                    manifest_path: str | None = None,
+                    process_index: int | None = None,
+                    process_count: int | None = None,
+                    parse_workers: int | None = None,
+                    io_workers: int = 8) -> BatchResult:
+    """Thumbnail a list of clips on one device (the card unless `device`
+    names another; "cpu" runs the plain engine).  process_index /
+    process_count (default 0 / 1) take every process_count-th clip."""
+    from ..device import resolve_device
+    from ..export.image import export_picture
+    from ..ops.recon import pack_frames
+
+    device = resolve_device(device)       # no card: raises
+    if process_index is None:
+        process_index = 0
+    if process_count is None:
+        process_count = 1
+    my_clips = list(clips)[process_index::process_count]
+
+    os.makedirs(outdir, exist_ok=True)
+    if manifest_path is None:
+        manifest_path = os.path.join(
+            outdir, f"manifest.{process_index}.jsonl")
+    if parse_workers is None:
+        parse_workers = min(32, (os.cpu_count() or 4))
+
+    from ..profiling import StageTimer, device_trace
+    timer = StageTimer()
+    result = BatchResult()
+
+    # production path: entropy-parse whole buckets straight into the
+    # slab staging the fused engine consumes; MINIVIDEO_TPU_NO_NATIVE=1
+    # keeps the raster path (the Python parsers)
+    recon = _Recon(device, engine)
+    use_slab = os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1"
+
+    with Manifest(manifest_path) as man:
+        todo = man.pending(my_clips)
+        result.skipped = len(my_clips) - len(todo)
+
+        pool = ThreadPoolExecutor(max_workers=parse_workers)
+
+        # ---- stage 1: parallel host demux (failure-isolated) -------------
+        parsed: list = []
+        stage1 = _demux_clip if use_slab else _parse_clip
+        with timer.stage("parse", len(todo)):
+            futs = {pool.submit(stage1, c, pictures_per_clip, mode,
+                                device): c
+                    for c in todo}
+            for fut, clip in futs.items():
+                try:
+                    parsed.append(fut.result())
+                except Exception as e:         # noqa: BLE001 — isolation
+                    trace.warning("PARALLEL", "clip failed: %s: %s",
+                                  clip, e)
+                    man.failed(clip, error=f"{type(e).__name__}: {e}")
+                    result.failed += 1
+                    result.errors[clip] = traceback.format_exc()
+
+        # ---- stage 2: bucket by geometry+config, device recon ------------
+        def bucket_key(pc):
+            sps, p = pc.sps, pc.pps
+            return (sps.pic_width_in_mbs, sps.pic_height_in_map_units,
+                    bool(p.transform_8x8_mode_flag),
+                    p.chroma_qp_index_offset,
+                    p.second_chroma_qp_index_offset,
+                    bytes(np.asarray(p.scaling_list_4x4, np.uint8)),
+                    bytes(np.asarray(p.scaling_list_8x8, np.uint8)))
+
+        buckets: dict = {}
+        for pc in parsed:
+            buckets.setdefault(bucket_key(pc), []).append(pc)
+
+        export_pool = ThreadPoolExecutor(max_workers=io_workers)
+        pending_exports = []
+
+        for pcs in buckets.values():
+            if not pcs:
+                continue
+            owners = []
+            if use_slab:
+                from ..settings import staging_mode as _staging_mode
+                with timer.stage("entropy",
+                                 sum(len(pc.pictures) for pc in pcs)):
+                    packed, owners, bad = _parse_bucket_slab(
+                        pcs, pool, _staging_mode())
+                for path, err in bad.items():
+                    man.failed(path, error=f"entropy: {err}")
+                    result.failed += 1
+                    result.errors[path] = err
+                # owners stays row-aligned with the staging batch;
+                # failed clips are skipped at export time
+                pcs = [pc for pc in pcs if pc.path not in bad]
+                n_frames = len([1 for pc, _ in owners
+                                if pc.path not in bad])
+                bad_paths = set(bad)
+            else:
+                frames = []
+                for pc in pcs:
+                    for fi, f in enumerate(pc.frames):
+                        frames.append(f)
+                        owners.append((pc, fi))
+                packed = pack_frames(frames, pcs[0].sps, pcs[0].pps)
+                n_frames = len(frames)
+            # RGB formats: convert the whole batch on the device before
+            # the readback (ops/color.py) — same wiring as
+            # mv_decode(want_rgb=True)
+            try:
+                with timer.stage("recon", n_frames), device_trace():
+                    ys, cbs, crs, rgbs = recon(packed,
+                                               want_rgb=fmt in _RGB_FORMATS)
+            except Exception as e:             # noqa: BLE001 — isolation
+                for pc in pcs:
+                    man.failed(pc.path, error=f"recon: {e}")
+                    result.failed += 1
+                    result.errors[pc.path] = traceback.format_exc()
+                continue
+            result.frames += n_frames
+
+            # ---- stage 3: async export + manifest -----------------------
+            per_clip: dict = {}
+            skip = bad_paths if use_slab else ()
+            for bi, (pc, fi) in enumerate(owners):
+                if pc.path in skip:
+                    continue
+                per_clip.setdefault(pc.path, []).append((pc, fi, bi))
+
+            def export_clip(items, ys=ys, cbs=cbs, crs=crs, rgbs=rgbs):
+                pc = items[0][0]
+                sps = pc.sps
+                outs = []
+                for _, fi, bi in items:
+                    y = ys[bi][:sps.cropped_height, :sps.cropped_width]
+                    cb = cbs[bi][:sps.cropped_height // 2,
+                                 :sps.cropped_width // 2]
+                    cr = crs[bi][:sps.cropped_height // 2,
+                                 :sps.cropped_width // 2]
+                    rgb = (rgbs[bi][:sps.cropped_height,
+                                    :sps.cropped_width]
+                           if rgbs is not None else None)
+                    suffix = f"_{fi}" if len(items) > 1 else ""
+                    base = os.path.join(outdir, pc.file_name + suffix)
+                    outs.append(export_picture(base, fmt, y, cb, cr,
+                                               quality, rgb=rgb))
+                return pc.path, outs
+
+            for items in per_clip.values():
+                pending_exports.append(export_pool.submit(export_clip,
+                                                          items))
+
+        with timer.stage("export", len(pending_exports)):
+            for fut in pending_exports:
+                try:
+                    path, outs = fut.result()
+                    man.done(path, outputs=outs)
+                    result.done += 1
+                    result.outputs.extend(outs)
+                except Exception as e:         # noqa: BLE001 — isolation
+                    trace.warning("PARALLEL", "export failed: %s", e)
+                    result.failed += 1
+            export_pool.shutdown()
+        pool.shutdown()
+
+    timer.report("PARALLEL")
+    return result

@@ -138,14 +138,18 @@ import minivideo_tpu_torch.containers.native
 import minivideo_tpu_torch.testing.containers
 from minivideo_tpu_torch.containers import (avi, es, mkv, mp3, mp4, mpeg_ps,
                                             pes, riff, ts, wave)
+import minivideo_tpu_torch.muxer.muxer, minivideo_tpu_torch.profiling
+import minivideo_tpu_torch.export.image, minivideo_tpu_torch.parallel
+from minivideo_tpu_torch.apps import analyser, extractor, thumbnailer
 print(json.dumps({"torch": "torch" in sys.modules}))
 """
 
 
 def test_host_layer_imports_no_torch():
-    """Opening and demuxing load no torch: a process that only demuxes
-    (test_containers.py's bounded-memory subprocess, a demux tool) keeps
-    its memory."""
+    """Opening, demuxing and extracting load no torch, nor do the apps,
+    the batch pipeline and the export writers until they decode: a
+    process that only demuxes (test_containers.py's bounded-memory
+    subprocess, a demux tool) keeps its memory."""
     r = subprocess.run([sys.executable, "-c",
                         "REPO = %r\n" % REPO + _TORCH_FREE],
                        capture_output=True, text=True, timeout=120,

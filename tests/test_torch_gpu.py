@@ -10,6 +10,8 @@ torch and the port are imported by the `cuda` fixture, not at collection
 (see torch_port_helpers.py).
 """
 
+import os
+
 import pytest
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +172,82 @@ def test_mv_decode_mp4_on_card_equals_cpu(cuda, tmp_path):
     for g, w in zip(got, want):
         for a, b in ((g.y, w.y), (g.cb, w.cb), (g.cr, w.cr), (g.rgb, w.rgb)):
             assert a.shape == b.shape and (a == b).all()
+
+
+def _same_tree(a, b):
+    names = sorted(f for f in os.listdir(b) if not f.endswith(".jsonl"))
+    assert names and sorted(f for f in os.listdir(a)
+                            if not f.endswith(".jsonl")) == names
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, \
+                open(os.path.join(b, n), "rb") as fb:
+            assert fa.read() == fb.read(), n
+
+
+def test_batch_thumbnail_on_card_equals_cpu(cuda, tmp_path):
+    """batch_thumbnail over three buckets ((7x5 MBs, 8x8 transform),
+    (7x5, 4x4 only) and (4x3)) and a clip whose slice data is spoiled:
+    one launch per bucket, the corrupt clip failed, and the CPU run's
+    files, for a planar and an RGB format."""
+    from minivideo_tpu_torch.codecs import PictureFormat
+    from minivideo_tpu_torch.ops import recon_fused as tfused
+    from minivideo_tpu_torch.parallel import batch_thumbnail
+    from minivideo_tpu_torch.testing.containers import write_mp4, write_ts
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    (tmp_path / "a.mp4").write_bytes(write_mp4(_stream("i8_slices"), 112,
+                                               80))
+    (tmp_path / "b.ts").write_bytes(write_ts(_stream("kinds_pcm")))
+    small = dict(width_mbs=4, height_mbs=3, n_pictures=2, seed=50)
+    (tmp_path / "c.264").write_bytes(make_stream(**small))
+    bad = bytearray(make_stream(**dict(small, seed=51)))
+    for pos in range(len(bad) * 2 // 3, len(bad) - 8, 3):
+        bad[pos] ^= 0xFF
+    (tmp_path / "d.264").write_bytes(bytes(bad))
+    clips = sorted(str(p) for p in tmp_path.iterdir())
+    for fmt in (PictureFormat.YUV420, PictureFormat.PNG):
+        out = {}
+        for dev in (None, "cpu"):
+            tag = f"{fmt.name}_{dev}"
+            tfused.wave_kernel_cuda.launches = 0
+            res = batch_thumbnail(clips, str(tmp_path / tag), device=dev,
+                                  fmt=fmt, pictures_per_clip=2)
+            out[dev] = (str(tmp_path / tag), tfused.wave_kernel_cuda.launches)
+            assert (res.done, res.failed) == (3, 1)
+            assert [os.path.basename(p) for p in res.errors] == ["d.264"]
+        assert out[None][1] == 3 and out["cpu"][1] == 0
+        _same_tree(out[None][0], out["cpu"][0])
+
+
+def test_thumbnailer_on_card_equals_cpu(cuda, tmp_path):
+    """The thumbnailer CLI on the card (the default device) and with
+    --device cpu write the same files; one launch per call."""
+    from minivideo_tpu_torch.apps.thumbnailer import main
+    from minivideo_tpu_torch.ops import recon_fused as tfused
+    from minivideo_tpu_torch.testing.containers import write_mkv
+    path = tmp_path / "clip.mkv"
+    path.write_bytes(write_mkv(_stream("qp51"), 80, 96))
+    for fmt in ("png", "jpg", "yuv420"):
+        args = ["-i", str(path), "-f", fmt, "-n", "2"]
+        tfused.wave_kernel_cuda.launches = 0
+        assert main(args + ["-o", str(tmp_path / f"{fmt}_card")]) == 0
+        assert tfused.wave_kernel_cuda.launches == 1
+        assert main(args + ["-o", str(tmp_path / f"{fmt}_cpu"),
+                            "--device", "cpu"]) == 0
+        _same_tree(str(tmp_path / f"{fmt}_card"), str(tmp_path / f"{fmt}_cpu"))
+
+
+def test_device_trace_records_the_kernel(cuda, tmp_path):
+    """profiling.device_trace on the card: the Chrome trace it writes
+    holds the wave kernel's launch as a device event."""
+    import json
+    from minivideo_tpu_torch.models.h264 import decoder as tdec
+    from minivideo_tpu_torch.profiling import device_trace
+    data = _stream("kinds_pcm")
+    tdec.decode_annexb(data)                 # build and warm up first
+    with device_trace(str(tmp_path)):
+        tdec.decode_annexb(data)
+    trace, = tmp_path.iterdir()
+    events = json.loads(trace.read_text())["traceEvents"]
+    # the kernel is launched through ctypes, not torch: only the device
+    # event carries its name
+    assert any("wave_kernel" in e.get("name", "") for e in events)

@@ -51,7 +51,7 @@ def test_port_runs_with_jax_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["pictures"] == 2 and out["shape"] == [48, 64]
-    assert out["modules"] >= 35 and out["loaded"] == []
+    assert out["modules"] >= 68 and out["loaded"] == []
 
 
 def _imports(path):
@@ -148,11 +148,16 @@ def test_bad_streams_are_the_fixture_s(name):
     assert bad_stream(name, make_stream) == bad_stream(name, fixture_stream)
 
 
-def test_chip_smoke_digests_are_the_jax_package_s(monkeypatch):
+def test_chip_smoke_digests_are_the_jax_package_s(monkeypatch, tmp_path):
     """The 1080p stream's SHA-256, the per-picture plane digests and the
     RGB digests in chip_smoke.py equal what the fixture encoder and the
     JAX package's fused engine (device staging, want_rgb) give, and the
-    port's CPU decode of the stream gives them too."""
+    port's CPU decode of the stream gives them too.  So do the thumbnails
+    phase's pins: the JAX package's native JPEG of each picture
+    (JPEG_DIGESTS), the small clip's planes (SMALL_DIGESTS) and the ES
+    that mv_extract writes from the 16-picture MP4 (ES_SHA256); and
+    chip_smoke.png_pixels reads back the pixels of both packages' PNG
+    writers."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from fixtures.h264enc import make_stream
@@ -178,6 +183,42 @@ def test_chip_smoke_digests_are_the_jax_package_s(monkeypatch):
     assert digests(got) == chip_smoke.JAX_DIGESTS
     assert rgb_digests(got) == chip_smoke.RGB_DIGESTS
     assert len(chip_smoke.JAX_DIGESTS) == chip_smoke.STREAM_KW["n_pictures"]
+
+    from fixtures import containers
+    from minivideo_tpu import api, native
+    from minivideo_tpu.export import image
+    from minivideo_tpu_torch import api as port_api
+    from minivideo_tpu_torch import native as port_native
+    from minivideo_tpu_torch.testing.streams import repeat_pictures
+    jpeg = [hashlib.sha256(native.encode_jpeg_native(*p.cropped(), 75))
+            .hexdigest() for p in want]
+    assert jpeg == chip_smoke.JPEG_DIGESTS
+    assert [hashlib.sha256(port_native.encode_jpeg_native(*p.cropped(), 75))
+            .hexdigest() for p in got] == jpeg
+    small = make_stream(**chip_smoke.THUMB_SMALL_KW)
+    assert digests(decode_annexb(small, engine="fused"))[0] == \
+        chip_smoke.SMALL_DIGESTS
+    assert digests(port_decode(small, device="cpu"))[0] == \
+        chip_smoke.SMALL_DIGESTS
+    mp4 = tmp_path / "c.mp4"
+    mp4.write_bytes(containers.write_mp4(repeat_pictures(data, 8), 1920,
+                                         1088))
+    for pkg, tag in ((api, "jax"), (port_api, "port")):
+        media = pkg.mv_open(str(mp4))
+        assert pkg.mv_parse(media)
+        (tmp_path / tag).mkdir()
+        es = pkg.mv_extract(media, media.tracks_video[0],
+                            str(tmp_path / tag), "es")
+        pkg.mv_close(media)
+        assert hashlib.sha256(open(es, "rb").read()).hexdigest() == \
+            chip_smoke.ES_SHA256, tag
+    png = tmp_path / "p.png"
+    png.write_bytes(native.encode_png_native(want[0].rgb))
+    np.testing.assert_array_equal(chip_smoke.png_pixels(str(png)),
+                                  want[0].rgb)
+    image.write_png_py(str(png), want[1].rgb[:40, :24])
+    np.testing.assert_array_equal(chip_smoke.png_pixels(str(png)),
+                                  want[1].rgb[:40, :24])
 
 
 def test_chip_smoke_fails_without_a_card():
