@@ -95,6 +95,24 @@ Phases, each printing one line with its seconds:
                   16-picture MP4; mv_extract of its video track to ES
                   (SHA-256 pinned), decoded on the card to the JAX
                   digests.
+ 14. engines    - the "wave" and "np" engines and the lane loop, which
+                  launch neither kernel (torch ops on the card; numpy on
+                  the host): decode_annexb(engine="wave") of the 1080p
+                  CAVLC and CABAC batches of 16 gives the JAX digests from
+                  planes computed on the card with no wave-kernel launch,
+                  with s per batch, pictures/s (median of 3) and peak
+                  memory (CAVLC), and the CUDA launches of a batch
+                  (torch.profiler, CABAC); reconstruct_frames_lane (the
+                  loop that the wave engine runs, so the CABAC trace
+                  counts its launches) of the CAVLC raster batch gives
+                  the JAX digests, with its seconds and peak memory;
+                  build_residuals on the card equals it on the CPU, with
+                  its ms; decode_annexb(engine="np", max_pictures=2) gives
+                  the first two JAX digests, s per picture; on the kernel
+                  phase's small streams wave (card) = fused (card) = np;
+                  the BAD_STREAMS through wave and np give BAD_DIGESTS;
+                  batch_thumbnail(engine="wave", YUV420) over the 16 CAVLC
+                  1080p files gives the JAX digests.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -322,7 +340,7 @@ def wave_kernel_bytes(packed):
     """Bytes the wave kernel must move for `packed`'s batch: each input
     it reads once (meta, the coefficients of parsed MBs, the scale and
     tap tables), each output written once."""
-    from minivideo_tpu_torch.ops.recon_lane import TAP_ROWS4, TAP_ROWS8
+    from minivideo_tpu_torch.ops.recon_wave import TAP_ROWS4, TAP_ROWS8
     from minivideo_tpu_torch.ops.slab import R_PARSED
     n_mbs = packed.batch * packed.wmb * packed.hmb
     n_parsed = int((packed.arrays["meta_slab"][:, :, R_PARSED] > 0).sum())
@@ -386,8 +404,10 @@ def median_s(fn, reps=3):
 
 
 def phase_cabac(t0, dev, streams):
-    """The 1080p CABAC batch of 16 on the card against the JAX digests;
-    adds it to `streams` as "cabac"."""
+    """The 1080p CABAC batch of 16 on the card against the JAX digests,
+    with its native CABAC bins per picture; adds it to `streams` as
+    "cabac"."""
+    from minivideo_tpu_torch import native
     from minivideo_tpu_torch.models.h264.decoder import decode_annexb
     from minivideo_tpu_torch.testing.h264enc2 import make_stream2
     from minivideo_tpu_torch.testing.streams import repeat_pictures
@@ -411,6 +431,13 @@ def phase_cabac(t0, dev, streams):
           and pics[0].y.shape == (1088, 1920))
     e2e = median_s(lambda: decode_annexb(stream))
     split = breakdown(stream, dev)
+    bins = native.cabac_bins_total()
+    decode_annexb(stream)
+    bins = native.cabac_bins_total() - bins
+    log("cabac", t0, f"native CABAC bins: {bins} per batch of {BATCH}, "
+        f"{bins / BATCH / 1e6:.4f} Mbins per 1080p picture "
+        f"(native.cabac_bins_total)")
+    ok = ok and bins > 0
     log("cabac", t0, f"decode_annexb: {len(pics)} pictures in "
         f"{first_s:.3f}s, planes {'=' if got == want else '!='} JAX "
         f"digests, wave_kernel launches {launches} (want 1 per batch); "
@@ -1161,6 +1188,241 @@ def phase_thumbnails(t0, dev, streams):
     return ok
 
 
+def device_work(fn):
+    """(fn()'s result, {kind: count} of the device activity of that call
+    from torch.profiler's trace: "kernel" launches, "memcpy", "memset",
+    and "busy_ms", the sum of their durations).  fn runs once, inside the
+    trace, and its exceptions propagate; only a failure of the profiler
+    itself (starting, stopping, reading the trace) or a trace with no
+    device events gives "not measured (...)" in place of the counts."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prof, why = None, None
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:                    # noqa: BLE001 - a diagnostic
+        prof, why = None, e
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+            except Exception as e:            # noqa: BLE001 - a diagnostic
+                prof, why = None, e
+    if prof is None:
+        return out, f"not measured ({type(why).__name__}: {why})"
+    try:
+        kinds, busy_ns = collections.Counter(), 0
+        for e in prof.profiler.kineto_results.events():
+            if str(e.device_type()).endswith("CUDA"):
+                name = e.name()
+                kinds["memcpy" if name.startswith("Memcpy") else
+                      "memset" if name.startswith("Memset") else
+                      "kernel"] += 1
+                busy_ns += e.duration_ns()
+    except Exception as e:                    # noqa: BLE001 - a diagnostic
+        return out, f"not measured ({type(e).__name__}: {e})"
+    if not kinds:
+        return out, "not measured (no device events)"
+    return out, dict(kinds, busy_ms=round(busy_ns / 1e6, 3))
+
+
+def plane_digests(planes):
+    """digests() of (Y, Cb, Cr) batch tensors, per picture."""
+    y, cb, cr = (p.cpu().numpy() for p in planes)
+    return [[sha(y[i]), sha(cb[i]), sha(cr[i])] for i in range(len(y))]
+
+
+def raster_staged(stream, device):
+    """The one-part stream's raster staging on `device` (the wave and
+    lane engines' feed)."""
+    from minivideo_tpu_torch.models.h264.decoder import stage_annexb
+    (_, packed), = stage_annexb(stream, device, staging_mode="raster")
+    return packed
+
+
+def peak_run(fn):
+    """(fn()'s result, host seconds to the end of its device work, peak
+    device memory above what was allocated before, that base)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.time() - t, torch.cuda.max_memory_allocated() - base,
+            base)
+
+
+def phase_engines(t0, dev, streams):
+    """The wave, lane and np engines on the card (see the docstring's
+    phase 14).  Returns whether every check held."""
+    import shutil
+    import tempfile
+    import torch
+    from minivideo_tpu_torch.models.h264 import decoder as tdec
+    from minivideo_tpu_torch.ops.recon import build_residuals
+    from minivideo_tpu_torch.ops.recon_lane import reconstruct_frames_lane
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    from minivideo_tpu_torch.testing.streams import BAD_STREAMS, bad_stream
+    ok = True
+    wants = {"cavlc": [JAX_DIGESTS[i % 2] for i in range(BATCH)],
+             "cabac": [CABAC_DIGESTS[i % 2] for i in range(BATCH)]}
+
+    # ---- decode_annexb(engine="wave"): where its planes were computed;
+    # the CAVLC batch timed three times (each run's digests and peak
+    # memory checked), the CABAC batch's device work traced
+    spied = []
+    real = tdec.reconstruct_frames_wave
+
+    def spy(packed, device=None):
+        out = real(packed, device)
+        spied.append(out[0].device.type)
+        return out
+
+    tdec.reconstruct_frames_wave = spy
+    try:
+        for name in ("cavlc", "cabac"):
+            spied.clear()
+
+            def wave(name=name):
+                return tdec.decode_annexb(streams[name], engine="wave")
+
+            if name == "cavlc":
+                runs, launches = decode_counted(
+                    lambda: [peak_run(wave) for _ in range(3)])
+                got = [digests(r[0]) for r in runs]
+                same = all(g == wants[name] for g in got)
+                n_pics = len(runs[0][0])
+                secs = [r[1] for r in runs]
+                e2e = statistics.median(secs)
+                msg = (f"runs of {[round(x, 3) for x in secs]} s, "
+                       f"{e2e:.3f} s per batch, {BATCH / e2e:.2f} "
+                       f"pictures/s (median of 3); peak memory "
+                       f"{max(r[2] for r in runs)} bytes above "
+                       f"{runs[0][3]}")
+                where_ok = spied == ["cuda"] * 3
+            else:
+                t = time.time()
+                (pics, kinds), launches = decode_counted(
+                    lambda: device_work(wave))
+                same = digests(pics) == wants[name]
+                n_pics = len(pics)
+                msg = (f"{time.time() - t:.3f} s (traced); device activity "
+                       f"of the batch (torch.profiler): {kinds}")
+                where_ok = spied == ["cuda"]
+            good = same and launches == 0 and where_ok
+            ok = ok and good
+            log("engines", t0, f"decode_annexb(engine='wave') {name}: "
+                f"{n_pics} pictures, planes computed on {list(spied)}, "
+                f"{'=' if same else '!='} JAX digests, wave_kernel "
+                f"launches {launches} (want 0); {msg} "
+                + ("ok" if good else "FAILED"))
+    finally:
+        tdec.reconstruct_frames_wave = real
+
+    # ---- the lane loop on the raster batch (one run; its launches are
+    # the traced CABAC wave decode's, which runs the same loop), and
+    # build_residuals
+    packed = raster_staged(streams["cavlc"], dev)
+    (planes, secs, peak, base), launches = decode_counted(
+        lambda: peak_run(lambda: reconstruct_frames_lane(packed)))
+    on_card = all(p.device.type == "cuda" for p in planes)
+    got = plane_digests(planes)
+    del planes
+    good = got == wants["cavlc"] and on_card and launches == 0
+    ok = ok and good
+    log("engines", t0, f"reconstruct_frames_lane: 1080p raster batch of "
+        f"{BATCH} in {secs:.3f}s ({BATCH / secs:.2f} pictures/s, one run), "
+        f"planes on {'cuda' if on_card else 'NOT cuda'} "
+        f"{'=' if got == wants['cavlc'] else '!='} JAX digests, wave_kernel "
+        f"launches {launches} (want 0); peak memory {peak} bytes above "
+        f"{base} " + ("ok" if good else "FAILED"))
+
+    def residuals(p):
+        return build_residuals(p.arrays, p.ls4, p.ls8, *p.chroma_qp_off)
+
+    cpu = raster_staged(streams["cavlc"], "cpu")
+    t = time.time()
+    want = residuals(cpu)
+    cpu_s = time.time() - t
+    got = residuals(packed)
+    same = all(torch.equal(got[k].cpu(), want[k]) for k in want)
+    del got, want
+    res_ms = cuda_ms(lambda: residuals(packed), 5)
+    ok = ok and same
+    log("engines", t0, f"build_residuals of the 1080p raster batch of "
+        f"{BATCH}: card {'=' if same else '!='} CPU; {res_ms:.3f} ms on "
+        f"the card (CUDA events, median of 3 x 5 calls), {cpu_s:.3f} s on "
+        f"the host's CPU (one run) " + ("ok" if same else "FAILED"))
+    del packed, cpu
+
+    # ---- np: the numpy oracle on the host
+    t = time.time()
+    pics = tdec.decode_annexb(streams["cavlc"], engine="np", max_pictures=2)
+    np_s = (time.time() - t) / 2
+    good = digests(pics) == JAX_DIGESTS and all(p.rgb is None for p in pics)
+    ok = ok and good
+    log("engines", t0, f"decode_annexb(engine='np', max_pictures=2): "
+        f"{len(pics)} pictures, {'=' if good else '!='} the first two JAX "
+        f"digests; {np_s:.3f} s per 1080p picture on the host "
+        + ("ok" if good else "FAILED"))
+
+    # ---- small feature streams: wave (card) = fused (card) = np
+    bad = []
+    for kw in SMALL:
+        data = make_stream(**kw)
+        outs = [digests(tdec.decode_annexb(data, engine=e))
+                for e in ("wave", "fused", "np")]
+        if not outs[0] == outs[1] == outs[2]:
+            bad.append(kw["seed"])
+    ok = ok and not bad
+    log("engines", t0, f"{len(SMALL)} small streams of the kernel phase: "
+        f"wave = fused = np on all but seeds {bad} "
+        + ("ok" if not bad else "FAILED"))
+
+    # ---- BAD_STREAMS through wave and np
+    for name in BAD_STREAMS:
+        data = bad_stream(name, make_stream)
+        got = {e: digests(tdec.decode_annexb(data, engine=e))
+               for e in ("wave", "np")}
+        good = all(g == BAD_DIGESTS[name] for g in got.values())
+        ok = ok and good
+        log("engines", t0, f"bad stream {name}: wave {len(got['wave'])}, "
+            f"np {len(got['np'])} pictures (JAX package: "
+            f"{len(BAD_DIGESTS[name])}), both {'=' if good else '!='} "
+            f"BAD_DIGESTS " + ("ok" if good else "FAILED"))
+
+    # ---- batch_thumbnail(engine="wave") over the 16 CAVLC 1080p files
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engines_")
+    try:
+        clips, want = write_thumbnail_clips(tmp, streams)
+        clips = [c for c in clips if os.path.basename(c).startswith("cavlc")]
+        want = {c: want[c] for c in clips}
+        out = os.path.join(tmp, "wave")
+        (res, timer, secs, _), launches = decode_counted(
+            lambda: batch_run(clips, out, "YUV420", engine="wave"))
+        files_ok, _ = thumbnail_files_ok("YUV420", res, want, {})
+        good = (files_ok and res.done == len(clips) and res.failed == 0
+                and launches == 0)
+        ok = ok and good
+        log("engines", t0, f"batch_thumbnail(engine='wave', YUV420) over "
+            f"{len(clips)} CAVLC 1080p files: {res.done} done, "
+            f"{res.failed} failed, every file "
+            f"{'=' if files_ok else '!='} its JAX digest, wave_kernel "
+            f"launches {launches} (want 0); {secs:.3f}s, stages "
+            + ", ".join(f"{k} {v:.4f}" for k, v in timer.acc.items())
+            + (" ok" if good else " FAILED"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
 def main():
     t0 = time.time()
     failed = []
@@ -1386,15 +1648,16 @@ def main():
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
 
-    # ---- 8.-13. CABAC, containers, staging layouts, Python parsers, bad
-    # slices, thumbnails
+    # ---- 8.-14. CABAC, containers, staging layouts, Python parsers, bad
+    # slices, thumbnails, the wave/lane/np engines
     streams = {"cavlc": stream}            # the 1080p batches of 16
     for name, phase in (("cabac", phase_cabac),
                         ("containers", phase_containers),
                         ("staging", phase_staging),
                         ("parsers", phase_parsers),
                         ("bad slices", phase_bad_slices),
-                        ("thumbnails", phase_thumbnails)):
+                        ("thumbnails", phase_thumbnails),
+                        ("engines", phase_engines)):
         if not phase(t0, dev, streams):
             failed.append(name)
 

@@ -63,10 +63,12 @@ def mv_decode(media: MediaFile, picture_number: int = 1,
               mode: PictureRepartition = PictureRepartition.UNFILTERED,
               engine: str = "fused", device=None, want_rgb: bool = False):
     """Decode up to picture_number IDR pictures from the first video track
-    (minivideo_decode).  Returns a list of DecodedPicture.  device=None
-    decodes on the GPU and raises when there is none; device="cpu" runs
-    the plain PyTorch engine.  want_rgb: also convert to RGB888 on the
-    decode's device (ops/color.py)."""
+    (minivideo_decode).  Returns a list of DecodedPicture.  engine:
+    "fused" (default), "wave" or "np" (models/h264/decoder.py).
+    device=None decodes on the GPU and raises when there is none;
+    device="cpu" runs the engine's torch ops on the CPU.  want_rgb: also
+    convert to RGB888 on the decode's device (ops/color.py; not under
+    "np", which leaves it to the host)."""
     from .device import resolve_device
     from .models.h264.decoder import decode_annexb
     device = resolve_device(device)       # no card: raises, even for []

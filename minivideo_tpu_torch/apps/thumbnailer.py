@@ -4,12 +4,14 @@ Feature parity with mini_thumbnailer (reference
 mini_thumbnailer/src/main.cpp:72-286): -i/-o/-f/-q/-n/-e flags, open ->
 parse(video) -> decode -> export.
 
-Port of minivideo_tpu/apps/thumbnailer.py.  `--engine` takes the port's
-one engine, "fused"; `--device` names where it runs: the card by default
-(raising where there is none), or "cpu" for the plain PyTorch engine,
-as mv_decode(device=...).  BMP, TGA and PNG are converted to RGB on that
-device before the readback (want_rgb), as the JAX app does with a device
-engine.  The decoder is imported only when a picture is decoded.
+Port of minivideo_tpu/apps/thumbnailer.py.  `--engine` takes the
+engines of settings.ENGINES: "fused" (the port's default; the JAX app's
+is "np"), "wave" or "np"; `--device` names where it runs: the card by
+default (raising where there is none), or "cpu", as
+mv_decode(device=...).  With "fused" and "wave", BMP, TGA and PNG are
+converted to RGB on that device before the readback (want_rgb), as the
+JAX app does with a device engine; "np" leaves the conversion to the
+host.  The decoder is imported only when a picture is decoded.
 
     python -m minivideo_tpu_torch.apps.thumbnailer -i clip.mp4 -o out -f png
 """
@@ -22,6 +24,7 @@ import sys
 
 from ..api import mv_close, mv_decode, mv_open, mv_parse
 from ..codecs import PictureFormat, PictureRepartition
+from ..settings import ENGINES
 from .. import trace
 
 _FMT = {"jpg": PictureFormat.JPG, "png": PictureFormat.PNG,
@@ -49,10 +52,12 @@ def main(argv=None) -> int:
                    help="number of pictures to export (1-999)")
     p.add_argument("-e", dest="mode", default="unfiltered",
                    choices=sorted(_MODE), help="picture extraction mode")
-    p.add_argument("--engine", default="fused", choices=("fused",),
+    p.add_argument("--engine", default="fused", choices=ENGINES,
                    help="reconstruction engine (fused: the CUDA wave "
                         "kernel on the card, its plain PyTorch version "
-                        "on the CPU)")
+                        "on the CPU; wave: the wave loop as torch ops "
+                        "on the device; np: the numpy oracle on the "
+                        "host)")
     p.add_argument("--device", default=None,
                    help="torch device to decode on (default: the CUDA "
                         "card; 'cpu' runs the plain engine)")
@@ -66,10 +71,10 @@ def main(argv=None) -> int:
 
     from ..export.image import export_picture
     fmt = _FMT[args.format]
-    # RGB formats: convert on the decode's device before the readback
-    # (ops/color.py) — no host conversion pass
+    # RGB formats on a device engine: convert on the decode's device
+    # before the readback (ops/color.py) — no host conversion pass
     want_rgb = fmt in (PictureFormat.BMP, PictureFormat.TGA,
-                       PictureFormat.PNG)
+                       PictureFormat.PNG) and args.engine != "np"
     media = mv_open(args.input)
     try:
         if not mv_parse(media, audio=False, video=True, subs=False):

@@ -9,7 +9,7 @@ def resolve_device(device=None) -> torch.device:
     """The device to decode on: CUDA unless the caller names another.
 
     device=None asks for the GPU and raises when there is none; the CPU
-    (the plain PyTorch engine) runs only when asked for by name."""
+    runs only when asked for by name."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available; pass "

@@ -1,17 +1,24 @@
 """H.264 intra decoder: Annex-B stream -> decoded pictures.
 
-Port of minivideo_tpu/models/h264/decoder.py for the fused engine:
-parameter sets and slice headers are parsed on the host, every IDR
-picture is entropy-parsed by the native parser into slab staging (the
-records or the device layout, settings.staging_mode) and each group of
-pictures sharing an SPS/PPS is reconstructed in one batch by
-ops/recon_fused (the CUDA kernel on a GPU, its plain PyTorch version on
-the CPU).  Under MINIVIDEO_TPU_NO_NATIVE=1 the Python CAVLC/CABAC parsers
-fill raster staging instead; a part whose slab parse fails is parsed
-again picture by picture into raster staging, dropping the pictures that
-fail, as the reference drops bad IDR pictures.  With want_rgb the
-planes are also converted to RGB888 on the decode's device
-(ops/color.py) before they are read back.
+Port of minivideo_tpu/models/h264/decoder.py, with its three
+reconstruction engines (settings.ENGINES):
+  "fused" (the default) - every IDR picture is entropy-parsed by the
+      native parser into slab staging (the records or the device layout,
+      settings.staging_mode) and each group of pictures sharing an
+      SPS/PPS is reconstructed in one batch by ops/recon_fused (the CUDA
+      kernel on a GPU, its plain PyTorch version on the CPU);
+  "wave" - the same batches in raster staging through the wave loop
+      (ops/recon_wave.py), torch ops on the decoder's device;
+  "np" - picture by picture through the numpy oracle
+      (models/h264/recon_np.py) on the host, as the JAX package's
+      default engine.
+Under MINIVIDEO_TPU_NO_NATIVE=1 the Python CAVLC/CABAC parsers fill
+raster staging instead; a part whose slab parse fails is parsed again
+picture by picture into raster staging, dropping the pictures that fail,
+as the reference drops bad IDR pictures.  With want_rgb the batched
+engines also convert the planes to RGB888 on the decode's device
+(ops/color.py) before they are read back; under "np" the RGB is left to
+the host (DecodedPicture.cropped_rgb).
 
 Reference: h264_decode (minivideo/src/decoder/h264/h264.c:41-206) — NALU
 loop dispatching on nal_unit_type {5 IDR, 6 SEI, 7 SPS, 8 PPS}, with its
@@ -37,11 +44,13 @@ from ...ops.recon import (make_slab_staging, make_slab_staging2,
                           pack_frames, pack_frames_slots, pack_frames_slots2)
 from ...ops.color import yuv420_to_rgb_device
 from ...ops.recon_fused import reconstruct_frames_fused, to_device
-from ...settings import staging_mode as _staging_mode
+from ...ops.recon_wave import reconstruct_frames_wave
+from ...settings import ENGINES, staging_mode as _staging_mode
 from .cabac import CabacSliceParser
 from .expgolomb import read_ue
 from .nalu import Nalu, NaluType, parse_nalu, split_annexb
 from .params import UnsupportedStream, parse_pps, parse_sei, parse_sps
+from .recon_np import reconstruct_frame
 from .slicehdr import parse_slice_header
 from .syntax import CavlcSliceParser, FrameSyntax
 
@@ -49,14 +58,16 @@ MAX_CONSECUTIVE_ERRORS = 64  # reference: h264.c:181-187
 
 
 def resolve_engine(engine: str) -> str:
-    """Map the user-facing engine name to a backend of the port.
-
-    "jax" (the JAX package's production alias) and "fused" both name the
-    fused wave engine, the only one ported so far."""
-    if engine in ("jax", "fused"):
+    """Map the user-facing engine name to a backend of the port:
+    "fused", "wave" or "np" (settings.ENGINES).  "jax", the JAX package's
+    production alias, is "fused" on every device (the JAX package maps it
+    to "wave" on a CPU backend); an unknown name raises."""
+    if engine == "jax":
         return "fused"
-    raise ValueError(f"engine {engine!r} is not part of the port "
-                     f"(only 'fused')")
+    if engine in ENGINES:
+        return engine
+    raise ValueError(f"unknown engine {engine!r} (one of {ENGINES} or "
+                     f"'jax')")
 
 
 @dataclass
@@ -119,7 +130,7 @@ class H264Decoder:
             parse_sei(nalu.rbsp)
             return None
         if t == NaluType.SLICE_IDR:
-            return self.reconstruct_batch([self.parse_idr_syntax([nalu])])[0]
+            return self._decode_idr([nalu])
         if t == NaluType.SLICE:
             trace.t1("H264", "skipping non-IDR slice NALU")
             return None
@@ -261,16 +272,21 @@ class H264Decoder:
 
     def reconstruct_batch(self, parsed_groups, packed=None):
         """Reconstruct MANY parsed pictures in one engine batch on the
-        decoder's device.  parsed_groups: list of (fs, sps, pps,
-        slice_of_mb) sharing one SPS/PPS; `packed` may be their prebuilt
-        slab staging (parse_groups_slab or stage_groups), else they are
-        packed in raster staging.  With want_rgb the uncropped planes
-        are converted to RGB888 there and read back with them."""
+        decoder's device: the fused engine, or the wave engine ("wave"
+        and, as in the JAX package, any engine but "fused").
+        parsed_groups: list of (fs, sps, pps, slice_of_mb) sharing one
+        SPS/PPS; `packed` may be their prebuilt staging (parse_groups_slab
+        or stage_groups; raster only for the wave engine), else they are
+        packed in raster staging.  With want_rgb the uncropped planes are
+        converted to RGB888 there and read back with them."""
         _, sps, pps, _ = parsed_groups[0]
         if packed is None:
             packed = pack_frames([(fs, som) for fs, _, _, som
                                   in parsed_groups], sps, pps)
-        planes = reconstruct_frames_fused(packed, self.device)
+        if self.engine == "fused":
+            planes = reconstruct_frames_fused(packed, self.device)
+        else:
+            planes = reconstruct_frames_wave(packed, self.device)
         rgbb = (yuv420_to_rgb_device(*planes).cpu().numpy()
                 if self.want_rgb else None)
         yb, cbb, crb = (p.cpu().numpy() for p in planes)
@@ -283,6 +299,20 @@ class H264Decoder:
                 rgb=rgbb[i] if rgbb is not None else None))
             self.idr_count += 1
         return pics
+
+    def _decode_idr(self, nalus):
+        """Decode one IDR picture (its slice NALUs): the numpy oracle on
+        the host under "np" (rgb left to the host), else a batch of one."""
+        fs, sps, pps, slice_of_mb = self.parse_idr_syntax(nalus)
+        if self.engine != "np":
+            return self.reconstruct_batch([(fs, sps, pps, slice_of_mb)])[0]
+        y, cb, cr = reconstruct_frame(fs, sps, pps, slice_of_mb)
+        pic = DecodedPicture(
+            y=y, cb=cb, cr=cr,
+            width=sps.cropped_width, height=sps.cropped_height,
+            idr_index=self.idr_count, syntax=fs)
+        self.idr_count += 1
+        return pic
 
 
 def _partition(dec, group_iter, max_pictures, errors):
@@ -320,10 +350,13 @@ def _partition(dec, group_iter, max_pictures, errors):
 
 
 def _decode_batched(dec, group_iter, max_pictures, errors):
-    """The decode path: entropy-parse every selected picture first, then
-    reconstruct groups sharing an SPS/PPS configuration in ONE engine
-    batch."""
-    use_slab = os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1"
+    """The decode path of the batched engines: entropy-parse every
+    selected picture first, then reconstruct groups sharing an SPS/PPS
+    configuration in ONE engine batch.  Slab staging for the fused
+    engine (unless MINIVIDEO_TPU_NO_NATIVE=1), raster for the wave
+    engine."""
+    use_slab = (dec.engine == "fused"
+                and os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1")
     parts, errors = _partition(dec, group_iter, max_pictures, errors)
     pictures = []
     pool = None
@@ -446,8 +479,26 @@ def decode_annexb(data: bytes, max_pictures: int = 0, engine: str = "fused",
                   device=None, want_rgb: bool = False):
     """Decode an Annex-B byte stream; returns a list of DecodedPicture.
 
-    device=None decodes on the GPU and raises when there is none;
-    device="cpu" runs the plain PyTorch engine.  want_rgb: also return
-    RGB888 converted on that device (DecodedPicture.rgb)."""
+    engine: "fused" (default), "wave" or "np" (see the module docstring).
+    device=None decodes on the GPU and raises when there is none, for
+    every engine; device="cpu" runs the batched engines' torch ops on the
+    CPU ("np" computes on the host either way).  want_rgb: the batched
+    engines also return RGB888 converted on that device
+    (DecodedPicture.rgb)."""
     dec, idr_groups, errors = _open_stream(data, engine, device, want_rgb)
-    return _decode_batched(dec, iter(idr_groups), max_pictures, errors)
+    if dec.engine != "np":
+        return _decode_batched(dec, iter(idr_groups), max_pictures, errors)
+    pictures = []
+    for group in idr_groups:
+        try:
+            pictures.append(dec._decode_idr(group))
+        except UnsupportedStream:
+            raise
+        except (ValueError, BitstreamError) as e:
+            trace.warning("H264", "IDR decode error: %s", e)
+            errors += 1
+            if errors > MAX_CONSECUTIVE_ERRORS:
+                break
+        if max_pictures and len(pictures) >= max_pictures:
+            break
+    return pictures

@@ -220,8 +220,16 @@ def load():
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_void_p),
     ]
+    lib.mv_cabac_bins_total.restype = ctypes.c_uint64
+    lib.mv_cabac_bins_total.argtypes = []
     _lib = lib
     return lib
+
+
+def cabac_bins_total() -> int:
+    """Total CABAC bins decoded by the native parser in this process (all
+    threads); sample a delta around a workload for bins per picture."""
+    return int(load().mv_cabac_bins_total())
 
 
 # buffer order must match entropy.cc's mv_parse_slice

@@ -1,11 +1,15 @@
-"""Frame packing for the fused engine: staging buffers and PackedFrames.
+"""Frame packing (staging buffers and PackedFrames) and the batched
+residual construction.
 
-Port of the packing half of minivideo_tpu/ops/recon.py, in its three
-staging layouts (`PackedFrames.slots`):
+Port of minivideo_tpu/ops/recon.py.  Packing comes in three staging
+layouts (`PackedFrames.slots`):
 
   0 raster  - `pack_frames` stacks full FrameSyntax arrays (the Python
               parsers' or the native raster parse's), I_PCM samples in the
-              coefficient buffers;
+              coefficient buffers; `make_frame_staging` / `syntax_into` /
+              `pack_frames_staged` are its zero-copy form, where the
+              native parser writes the coefficients straight into
+              preallocated batch buffers;
   1 records - `make_slab_staging` holds int16 slab records in skew-slot
               order that the native parser writes; `pack_frames_slots`
               stacks the per-MB metadata beside them;
@@ -13,7 +17,11 @@ staging layouts (`PackedFrames.slots`):
               [B, W, S, maxw] with the meta rows, written by the native
               parser; `pack_frames_slots2` wraps them.
 
-ops/slab.py turns layouts 0 and 1 into layout 2 on the device.
+ops/slab.py turns layouts 0 and 1 into layout 2 on the device for the
+fused engine.  `build_residuals` (torch ops on the staging tensors'
+device) dequantises and inverse-transforms every block of a raster batch
+in one pass, for the wave and lane loops (ops/recon_wave.py,
+ops/recon_lane.py).
 """
 
 from __future__ import annotations
@@ -22,11 +30,33 @@ from dataclasses import dataclass
 from functools import cached_property
 
 import numpy as np
+import torch
 
 from ..models.h264.spatial import _blk4x4_at
-from ..models.h264.syntax import KIND_IPCM, FrameSyntax
-from ..models.h264.tables import BLK4x4_POS
-from .transform import level_scale_4x4_np, level_scale_8x8_np
+from ..models.h264.syntax import KIND_I16x16, KIND_IPCM, FrameSyntax
+from ..models.h264.tables import BLK4x4_POS, QPC_FROM_QPI
+from .transform import (chroma_dc_transform, dequant_4x4_t, dequant_8x8_t,
+                        from_comp_first, idct_4x4_t, idct_8x8_t,
+                        level_scale_4x4_np, level_scale_8x8_np,
+                        luma_dc_transform, to_comp_first)
+
+
+def wave_tables(wmb: int, hmb: int):
+    """Anti-diagonal schedule: MBs with equal w = 2*row + col are
+    dependency-free (deps: left w-1, top w-2, top-right w-1)."""
+    n_waves = 2 * (hmb - 1) + wmb
+    waves = [[] for _ in range(n_waves)]
+    for r in range(hmb):
+        for c in range(wmb):
+            waves[2 * r + c].append(r * wmb + c)
+    maxw = max(len(wv) for wv in waves)
+    idx = np.zeros((n_waves, maxw), dtype=np.int32)
+    valid = np.zeros((n_waves, maxw), dtype=bool)
+    for i, wv in enumerate(waves):
+        idx[i, :len(wv)] = wv
+        valid[i, :len(wv)] = True
+    return idx, valid
+
 
 # top-right availability class per 4x4 block (spec 8.3.1.2 neighbour
 # derivation): 0=false, 1=true (inside the MB), 2=above MB, 3=above-right MB
@@ -131,6 +161,49 @@ def pack_frames(frames, sps, pps) -> PackedFrames:
     return _pack(fs0.width_mbs, fs0.height_mbs, arrays, pps, 0)
 
 
+def make_frame_staging(wmb: int, hmb: int, batch: int) -> dict:
+    """Preallocated batched coefficient buffers the native entropy parser
+    writes into directly (via syntax_into), so packing a batch never
+    copies the large arrays.  np.zeros maps lazy zero pages, so the
+    parser's sparse coefficient writes are the only memory traffic."""
+    n = wmb * hmb
+    B = batch
+    return {
+        "luma_dc": np.zeros((B, n, 4, 4), np.int32),
+        "luma_ac": np.zeros((B, n, 16, 4, 4), np.int32),
+        "luma8x8_coeff": np.zeros((B, n, 4, 8, 8), np.int32),
+        "chroma_dc": np.zeros((B, n, 2, 2, 2), np.int32),
+        "chroma_ac": np.zeros((B, n, 2, 4, 4, 4), np.int32),
+    }
+
+
+_STAGED = ("luma_dc", "luma_ac", "luma8x8_coeff", "chroma_dc", "chroma_ac")
+
+
+def syntax_into(staging: dict, i: int, wmb: int, hmb: int) -> FrameSyntax:
+    """A FrameSyntax whose large coefficient buffers alias staging[i]."""
+    fs = FrameSyntax(wmb, hmb)
+    for name in _STAGED:
+        view = staging[name][i]
+        assert view.flags["C_CONTIGUOUS"]
+        setattr(fs, name, view)
+    return fs
+
+
+def pack_frames_staged(staging: dict, frames, sps, pps) -> PackedFrames:
+    """pack_frames for frames parsed via syntax_into: the coefficient
+    arrays are the staging buffers themselves (zero copies); only the
+    small per-MB metadata arrays are stacked."""
+    for fs, _ in frames:
+        assert not fs.pcm_y, "PCM frames need the copying pack_frames path"
+    arrays = _small_arrays(frames)
+    B = len(frames)
+    for name in _STAGED:
+        arrays[name] = staging[name][:B]
+    fs0 = frames[0][0]
+    return _pack(fs0.width_mbs, fs0.height_mbs, arrays, pps, 0)
+
+
 def _luma_ac_with_pcm(fs: FrameSyntax) -> np.ndarray:
     """PCM raw luma rides in the (otherwise unused) coefficient buffer."""
     a = fs.luma_ac.astype(np.int32).copy()
@@ -206,3 +279,100 @@ def pack_frames_slots2(staging: dict, sps, pps) -> PackedFrames:
                                       "dc_slab", "meta_slab")}
     return _pack(sps.pic_width_in_mbs, sps.pic_height_in_map_units, arrays,
                  pps, 2)
+
+
+# ---------------------------------------------------------------------------
+# residuals: dequant + inverse transforms of a raster batch (torch ops)
+
+
+def _assemble_16x16(blocks):
+    """[..., 16, 4, 4] in luma4x4BlkIdx order -> [..., 16, 16]."""
+    lead = tuple(blocks.shape[:-3])
+    b = blocks.reshape(lead + (2, 2, 2, 2, 4, 4))
+    # index order: (y8, x8, y4, x4, py, px) -> rows y8,y4,py; cols x8,x4,px
+    b = torch.movedim(b, (-6, -4, -2, -5, -3, -1),
+                      (-6, -5, -4, -3, -2, -1))
+    return b.reshape(lead + (16, 16))
+
+
+def _assemble_from_8x8(blocks):
+    """[..., 4, 8, 8] raster -> [..., 16, 16]."""
+    lead = tuple(blocks.shape[:-3])
+    b = blocks.reshape(lead + (2, 2, 8, 8))
+    b = torch.movedim(b, (-4, -2, -3, -1), (-4, -3, -2, -1))
+    return b.reshape(lead + (16, 16))
+
+
+def _assemble_8x8_from_4(blocks):
+    """[..., 4, 4, 4] raster -> [..., 8, 8]."""
+    lead = tuple(blocks.shape[:-3])
+    b = blocks.reshape(lead + (2, 2, 4, 4))
+    b = torch.movedim(b, (-4, -2, -3, -1), (-4, -3, -2, -1))
+    return b.reshape(lead + (8, 8))
+
+
+_BLK_ROW = (BLK4x4_POS[:, 1] // 4).astype(np.int64)   # blkIdx -> dc row
+_BLK_COL = (BLK4x4_POS[:, 0] // 4).astype(np.int64)
+
+_QPC_TAB = np.asarray(QPC_FROM_QPI, np.int32)
+
+
+def build_residuals(arr, ls4, ls8, cb_off, cr_off):
+    """Phase 1: fully-batched residual construction of raster staging
+    `arr` (int tensors, all on one device; the result lies there too).
+
+    Returns dict with r4 [B,n,16,4,4], r8 [B,n,4,8,8],
+    luma16_res [B,n,16,16], chroma_res [B,n,2,8,8] int32."""
+    kind = arr["mb_kind"]                       # [B, n]
+    qp = arr["qpy"].to(torch.int32)
+    B, n = kind.shape
+    dev = kind.device
+
+    ls4 = torch.as_tensor(np.asarray(ls4, np.int32), device=dev)
+    ls8 = torch.as_tensor(np.asarray(ls8, np.int32), device=dev)
+
+    # luma 4x4 blocks
+    qp16 = qp[..., None].expand(B, n, 16).reshape(-1)
+    c4t, _ = to_comp_first(arr["luma_ac"].to(torch.int32), 4, 4)
+    d4t = dequant_4x4_t(c4t, qp16, ls4[0])
+    dc = luma_dc_transform(arr["luma_dc"], qp, ls4[0])       # [B,n,4,4]
+    dc_per_blk = dc[..., torch.as_tensor(_BLK_ROW, device=dev),
+                    torch.as_tensor(_BLK_COL, device=dev)].reshape(-1)
+    is16 = (kind == KIND_I16x16)[..., None].expand(B, n, 16).reshape(-1)
+    d4t[0, 0] = torch.where(is16, dc_per_blk, d4t[0, 0])
+    r4 = from_comp_first(idct_4x4_t(d4t), (B, n, 16), 4, 4)
+
+    # luma 8x8 blocks
+    qp4 = qp[..., None].expand(B, n, 4).reshape(-1)
+    c8t, _ = to_comp_first(arr["luma8x8_coeff"].to(torch.int32), 8, 8)
+    r8 = from_comp_first(idct_8x8_t(dequant_8x8_t(c8t, qp4, ls8)),
+                         (B, n, 4), 8, 8)
+
+    # assembled luma residual for I16x16 / PCM
+    pcm_luma = arr["luma_ac"].reshape(B, n, 16, 16).to(torch.int32)
+    luma16_res = torch.where((kind == KIND_IPCM)[..., None, None],
+                             pcm_luma, _assemble_16x16(r4))
+
+    # chroma
+    qpc_tab = torch.as_tensor(_QPC_TAB, device=dev)
+    blk_r = torch.tensor([0, 0, 1, 1], device=dev)
+    blk_c = torch.tensor([0, 1, 0, 1], device=dev)
+    chroma_parts = []
+    for ic, off in enumerate((cb_off, cr_off)):
+        qpc = qpc_tab[(qp + off).clamp(0, 51).long()]        # [B,n]
+        qpc4 = qpc[..., None].expand(B, n, 4).reshape(-1)
+        dci = chroma_dc_transform(arr["chroma_dc"][:, :, ic], qpc,
+                                  ls4[1 + ic])               # [B,n,2,2]
+        cct, _ = to_comp_first(arr["chroma_ac"][:, :, ic].to(torch.int32),
+                               4, 4)
+        dcht = dequant_4x4_t(cct, qpc4, ls4[1 + ic])
+        dcht[0, 0] = dci[..., blk_r, blk_c].reshape(-1)      # [B*n*4]
+        rc4 = from_comp_first(idct_4x4_t(dcht), (B, n, 4), 4, 4)
+        chroma_parts.append(_assemble_8x8_from_4(rc4))       # [B,n,8,8]
+    chroma_res = torch.stack(chroma_parts, dim=2)            # [B,n,2,8,8]
+    pcm_chroma = arr["chroma_ac"].reshape(B, n, 2, 8, 8).to(torch.int32)
+    chroma_res = torch.where((kind == KIND_IPCM)[..., None, None, None],
+                             pcm_chroma, chroma_res)
+
+    return {"r4": r4, "r8": r8, "luma16_res": luma16_res,
+            "chroma_res": chroma_res}

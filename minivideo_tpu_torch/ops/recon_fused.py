@@ -36,8 +36,8 @@ from ..device import resolve_device
 from . import kernels
 from . import slab as sl
 from .recon import PackedFrames
-from .recon_lane import TAP_ROWS4, TAP_ROWS8, wave_compute_lane
-from .recon_wave import skew_tables
+from .recon_lane import wave_compute_lane
+from .recon_wave import TAP_ROWS4, TAP_ROWS8, skew_tables
 
 
 def wave_schedule(g):

@@ -1,10 +1,19 @@
 """Lane-major per-wave intra prediction and reconstruction, plain
-PyTorch.
+PyTorch, and the lane loop.
 
 Port of minivideo_tpu/ops/recon_lane.py.  `wave_compute_lane` is the
 plain version of the prediction half of the fused wave kernel
-(ops/csrc/wave_kernel.cu).  Every per-wave tensor is lane-major, the
-wave-lane axis last, with the per-MB structure in the first axis:
+(ops/csrc/wave_kernel.cu); `reconstruct_frames_lane` is the JAX module's
+XLA loop as torch ops (raster staging -> build_residuals -> pack_lane
+-> a Python loop over the waves -> unskew_planes_lane), and the port's
+`wave` engine (ops/recon_wave.reconstruct_frames_wave) runs it too: the
+JAX wave loop computes the same per-wave math in another layout, and
+the JAX package's tests hold the two loops equal.  Where the JAX
+loop vmaps `wave_compute_lane` over the batch, this one folds the batch
+into the lanes ([S, B*L]): the lanes are independent, so that is the
+same computation, in one call per wave.  Every per-wave tensor is
+lane-major, the wave-lane axis last, with the per-MB structure in the
+first axis:
 
     luma tile     [256, L]   row = 16*y + x
     chroma tile   [128, L]   row = comp*64 + 8*y + x
@@ -22,14 +31,16 @@ h264_intra_prediction.c / h264_transform.c of the reference decoder.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..models.h264.syntax import (KIND_I4x4, KIND_I8x8, KIND_I16x16,
                                   KIND_IPCM)
-from .predtables import PRED4, PRED8
-from .recon import _TR4_CLASS
-from .recon_wave import _BLK_X, _BLK_Y, _SEL4, _SEL8
+from .recon import PackedFrames, _TR4_CLASS, build_residuals
+from .recon_wave import (TAP_ROWS4, TAP_ROWS8, _BLK_X, _BLK_Y, _SEL4, _SEL8,
+                         geometry, pack_skewed, unskew_planes)
 
 # ---------------------------------------------------------------------------
 # transposed selection matrices (JAX layout): acc[o, l] = sum_s M[s, o] *
@@ -50,28 +61,26 @@ _SEL4_T = _sel_T(_SEL4)   # [144, 14] f32 (13 refs + 1 bias column)
 _SEL8_T = _sel_T(_SEL8)   # [576, 26]
 
 
-def _tap_rows(tables, n):
-    """Tap tables as rows (idx0..2, w0..2, rnd, shift): [9*n*n, 8] int32,
-    row (m*n + y)*n + x; the CUDA kernel reads the same rows."""
-    idx, w, rnd, shift = tables
-    nn = 9 * n * n
-    return np.concatenate([idx.reshape(nn, 3), w.reshape(nn, 3),
-                           rnd.reshape(nn, 1), shift.reshape(nn, 1)],
-                          axis=1).astype(np.int32)
+@functools.lru_cache(maxsize=None)
+def device_taps(device):
+    """{n: (tap rows [9*n*n, 8] int32, their sample indices [9*n*n, 3]
+    int64)} on `device`, copied there once."""
+    out = {}
+    for n, rows in ((4, TAP_ROWS4), (8, TAP_ROWS8)):
+        t = torch.as_tensor(rows, device=device)
+        out[n] = (t, t[:, 0:3].long())
+    return out
 
 
-TAP_ROWS4 = _tap_rows(PRED4, 4)
-TAP_ROWS8 = _tap_rows(PRED8, 8)
-
-
-def _predict_lane(s, tap_rows, mode, dc, n):
+def _predict_lane(s, mode, dc, n):
     """s [S, L] int32 samples in [0, 255]; mode/dc [1, L].
 
     Returns the mode-selected prediction as [n*n, L] (row = n*y + x):
-    the 8 directional modes from the tap rows, DC (mode 2) from `dc`.
+    the 8 directional modes from the tap rows (TAP_ROWS4/8), DC (mode 2)
+    from `dc`.
     """
-    t = torch.as_tensor(tap_rows, device=s.device)
-    acc = ((t[:, 3:6, None] * s[t[:, 0:3].long()]).sum(1, dtype=torch.int32)
+    t, idx = device_taps(s.device)[n]
+    acc = ((t[:, 3:6, None] * s[idx]).sum(1, dtype=torch.int32)
            + t[:, 6:7]) >> t[:, 7:8]
     nn = n * n
     out = torch.zeros((nn, s.shape[-1]), dtype=torch.int32, device=s.device)
@@ -246,7 +255,7 @@ def wave_compute_lane(left_col, corner, top_row, tr_row, left_c, corner_cb,
         s = torch.cat([c4, t4, tr4, l4])
         dc = _dc(l4.sum(0, keepdim=True, dtype=torch.int32),
                  t4.sum(0, keepdim=True, dtype=torch.int32), al_b, at_b, 4)
-        pred = _predict_lane(s, TAP_ROWS4, modes4[b:b + 1], dc, 4)
+        pred = _predict_lane(s, modes4[b:b + 1], dc, 4)
         res = _rows(res_luma, by, bx, 4, 4)
         out = (pred + res).clamp(0, 255)
         t_write(out, bx, by, 4, is4)
@@ -301,7 +310,7 @@ def wave_compute_lane(left_col, corner, top_row, tr_row, left_c, corner_cb,
         dc = _dc(fl.sum(0, keepdim=True, dtype=torch.int32),
                  ft[:8].sum(0, keepdim=True, dtype=torch.int32),
                  al_b, at_b, 8)
-        pred = _predict_lane(s, TAP_ROWS8, modes8[b8:b8 + 1], dc, 8)
+        pred = _predict_lane(s, modes8[b8:b8 + 1], dc, 8)
         res = _rows(res_luma, by, bx, 8, 8)
         out = (pred + res).clamp(0, 255)
         t_write(out, bx, by, 8, is8)
@@ -368,3 +377,143 @@ def wave_compute_lane(left_col, corner, top_row, tr_row, left_c, corner_cb,
 
     pmask = parsed > 0
     return torch.where(pmask, tile, zero), torch.where(pmask, ctile, zero)
+
+
+# ---------------------------------------------------------------------------
+# the lane loop: a Python loop over the waves, the batch in the lanes
+
+
+def _unpack_meta_t(meta_t):
+    """meta_t [B, 32, L] -> per-field views (layout from pack_skewed).
+    Scalar fields keep a singleton sublane dim: [B, 1, L]."""
+    return {
+        "kind": meta_t[:, 0:1],
+        "parsed": meta_t[:, 1:2],
+        "al": meta_t[:, 2:3] > 0,
+        "at": meta_t[:, 3:4] > 0,
+        "atl": meta_t[:, 4:5] > 0,
+        "atr": meta_t[:, 5:6] > 0,
+        "i16_mode": meta_t[:, 6:7],
+        "cmode": meta_t[:, 7:8],
+        "modes8": meta_t[:, 8:12],
+        "modes4": meta_t[:, 12:28],
+    }
+
+
+def pack_lane(arrays, res, g):
+    """pack_skewed output, transposed to lane-major wave slabs."""
+    B = arrays["mb_kind"].shape[0]
+    n_waves, maxw = g["skew_idx"].shape
+    sk0 = pack_skewed(arrays, res, g)
+    return {
+        "meta": sk0["meta"].permute(0, 1, 3, 2).contiguous(),
+        "res_luma": sk0["res_luma"].reshape(
+            B, n_waves, maxw, 256).permute(0, 1, 3, 2).contiguous(),
+        "res_chroma": sk0["res_chroma"].reshape(
+            B, n_waves, maxw, 128).permute(0, 1, 3, 2).contiguous(),
+    }
+
+
+def unskew_planes_lane(out_y, out_c, g):
+    """out_y [B, W, 256, maxw] uint8, out_c [B, W, 128, maxw] ->
+    (Y, Cb, Cr) raster planes via the wave engine's unskew."""
+    B = out_y.shape[0]
+    n_waves, maxw = g["skew_idx"].shape
+    oy = out_y.permute(0, 1, 3, 2).reshape(B, n_waves, maxw, 16, 16)
+    oc = out_c.permute(0, 1, 3, 2).reshape(B, n_waves, maxw, 16, 8)
+    return unskew_planes(oy, oc, g)
+
+
+@functools.lru_cache(maxsize=None)
+def make_reconstruct_lane(wmb: int, hmb: int, device):
+    """The batched lane reconstructor of one MB geometry on `device`:
+    recon(arrays, ls4, ls8, cb_off, cr_off) -> (Y, Cb, Cr) uint8 tensors
+    [B, H, W] there, for raster staging tensors `arrays` there."""
+    g = geometry(wmb, hmb)
+    n_waves, maxw = g["n_waves"], g["maxw"]
+    i32 = torch.int32
+
+    def wave_body(w, state, sk):
+        out_y, out_c, row_y, row_c, bot_y, bot_c = state
+        B = row_y.shape[0]
+        r0, c0 = int(g["r0"][w]), int(g["c0"][w])
+        pc, half, halfr = c0 & 1, c0 >> 1, (c0 + 1) >> 1
+        rr0 = hmb - 1 - r0      # row state stored in reversed row order
+        rs_y = row_y[:, :, rr0:rr0 + maxw]
+        rs_c = row_c[:, :, rr0:rr0 + maxw]
+        top_row = bot_y[:, pc, :, half:half + maxw]
+        tr_row = bot_y[:, 1 - pc, :, halfr:halfr + maxw]
+        top_c = bot_c[:, pc, :, half:half + maxw]
+        meta = _unpack_meta_t(sk["meta"][:, w])
+
+        def fold(x):            # [B, S, L] -> [S, B*L]
+            return x.transpose(0, 1).reshape(x.shape[1], B * maxw)
+
+        def unfold(x):          # [S, B*L] -> [B, S, L]
+            return x.reshape(x.shape[0], B, maxw).transpose(0, 1)
+
+        args = (rs_y[:, :16], rs_y[:, 16:17], top_row, tr_row,
+                rs_c[:, :16], rs_c[:, 16:17], rs_c[:, 17:18], top_c,
+                meta["kind"], meta["al"], meta["at"], meta["atl"],
+                meta["atr"], meta["parsed"], meta["modes4"], meta["modes8"],
+                meta["i16_mode"], meta["cmode"], sk["res_luma"][:, w],
+                sk["res_chroma"][:, w])
+        tile, ctile = map(unfold, wave_compute_lane(*map(fold, args)))
+
+        # every new value is computed before any store: rs_*, top_row and
+        # top_c are views of the state
+        upd = meta["parsed"] > 0                      # [B, 1, L]
+        new_row = torch.where(upd, torch.cat(
+            [tile[:, 15::16], top_row[:, 15:16],
+             torch.zeros((B, 1, maxw), dtype=i32, device=device)], 1), rs_y)
+        new_rowc = torch.where(upd, torch.cat(
+            [ctile[:, 7::8], top_c[:, 7:8], top_c[:, 15:16]], 1), rs_c)
+        new_bot = torch.where(upd, tile[:, 240:256], top_row)
+        new_botc = torch.where(upd, torch.cat(
+            [ctile[:, 56:64], ctile[:, 120:128]], 1), top_c)
+        out_y[:, w] = tile.to(torch.uint8)
+        out_c[:, w] = ctile.to(torch.uint8)
+        row_y[:, :, rr0:rr0 + maxw] = new_row
+        row_c[:, :, rr0:rr0 + maxw] = new_rowc
+        bot_y[:, pc, :, half:half + maxw] = new_bot
+        bot_c[:, pc, :, half:half + maxw] = new_botc
+
+    def recon(arrays, ls4, ls8, cb_off, cr_off):
+        res = build_residuals(arrays, ls4, ls8, cb_off, cr_off)
+        B = arrays["mb_kind"].shape[0]
+        sk = pack_lane(arrays, res, g)
+        del res
+
+        def zeros(shape, dtype=i32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        state = (zeros((B, n_waves, 256, maxw), torch.uint8),
+                 zeros((B, n_waves, 128, maxw), torch.uint8),
+                 zeros((B, 18, g["ROWP"])), zeros((B, 18, g["ROWP"])),
+                 zeros((B, 2, 16, g["BOTP"])), zeros((B, 2, 16, g["BOTP"])))
+        for w in range(n_waves):
+            wave_body(w, state, sk)
+        return unskew_planes_lane(state[0], state[1], g)
+
+    return recon
+
+
+def _on_device(packed: PackedFrames, device):
+    """`packed` (raster staging) with its arrays as tensors on `device`
+    (ops/recon_fused.to_device: device=None leaves tensors where they lie
+    and puts numpy staging on the GPU, raising where there is none)."""
+    from .recon_fused import to_device
+    if packed.slots != 0:
+        raise ValueError("the wave and lane engines take raster staging "
+                         f"(slots=0), not slots={packed.slots}")
+    packed = to_device(packed, device)
+    return packed, packed.arrays["mb_kind"].device
+
+
+def reconstruct_frames_lane(packed: PackedFrames, device=None):
+    """Decode a raster PackedFrames batch with the lane loop on
+    `device` (default: where its staging tensors lie, or the GPU for
+    numpy staging).  Returns (Y, Cb, Cr) uint8 tensors [B, H, W] there."""
+    packed, dev = _on_device(packed, device)
+    fn = make_reconstruct_lane(packed.wmb, packed.hmb, dev)
+    return fn(packed.arrays, packed.ls4, packed.ls8, *packed.chroma_qp_off)

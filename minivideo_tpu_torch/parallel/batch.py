@@ -18,9 +18,12 @@ embarrassingly parallel across clips).  The pipeline has four stages:
                  raster staging instead;
   device recon — the bucket batch is copied to the device and runs the
                  fused engine once: csrc/wave_kernel.cu on the card, its
-                 plain PyTorch version on the CPU; for RGB formats the
-                 planes are converted there (ops/color.py) and read back
-                 with the RGB;
+                 plain PyTorch version on the CPU (the "wave" and "np"
+                 engines: raster staging through the wave loop,
+                 ops/recon_wave.py, as the JAX module runs its wave
+                 engine for both); for RGB formats the planes are
+                 converted there (ops/color.py, not under "np") and read
+                 back with the RGB;
   host export  — image encode + write on a thread pool.
 
 Failure isolation: any per-clip exception is caught, recorded in the
@@ -146,7 +149,8 @@ def _demux_groups(path: str, pictures: int, mode, device):
 
 def _parse_clip(path: str, pictures: int, mode, device) -> ParsedClip:
     """Demux + entropy-parse one clip's selected IDR pictures (host;
-    raster path — the MINIVIDEO_TPU_NO_NATIVE=1 route)."""
+    raster path — the wave and np engines' and the
+    MINIVIDEO_TPU_NO_NATIVE=1 route)."""
     dec, groups, file_name = _demux_groups(path, pictures, mode, device)
     frames = []
     sps = pps = None
@@ -239,8 +243,10 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
 class _Recon:
     """The bucket reconstruction on one device: the staging copy
     (ops/recon_fused.to_device), the fused engine (reconstruct_frames_
-    fused: wave_kernel.cu on the card, the plain loop on the CPU), the
-    RGB conversion there when asked, and the readback.  The JAX class
+    fused: wave_kernel.cu on the card, the plain loop on the CPU) or, for
+    every other engine, the wave loop (reconstruct_frames_wave, raster
+    staging), the RGB conversion there when asked, and the readback.
+    The JAX class
     caches one jitted, sharded function per (geometry, batch, features,
     layout); the port's reconstructors compile nothing per shape (the
     CUDA library is built once per checkout), so there is nothing to
@@ -256,8 +262,10 @@ class _Recon:
         RGB or None) numpy, one row per frame."""
         from ..ops.color import yuv420_to_rgb_device
         from ..ops.recon_fused import reconstruct_frames_fused, to_device
-        planes = reconstruct_frames_fused(to_device(packed, self.device),
-                                          self.device)
+        from ..ops.recon_wave import reconstruct_frames_wave
+        recon = (reconstruct_frames_fused if self.engine == "fused"
+                 else reconstruct_frames_wave)
+        planes = recon(to_device(packed, self.device), self.device)
         rgb = (yuv420_to_rgb_device(*planes).cpu().numpy()
                if want_rgb else None)
         return (*(p.cpu().numpy() for p in planes), rgb)
@@ -273,8 +281,10 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
                     parse_workers: int | None = None,
                     io_workers: int = 8) -> BatchResult:
     """Thumbnail a list of clips on one device (the card unless `device`
-    names another; "cpu" runs the plain engine).  process_index /
-    process_count (default 0 / 1) take every process_count-th clip."""
+    names another; "cpu" runs the engine's torch ops there).  engine:
+    "fused" (default), "wave" or "np" (both the wave loop, without
+    device RGB under "np").  process_index / process_count (default 0 /
+    1) take every process_count-th clip."""
     from ..device import resolve_device
     from ..export.image import export_picture
     from ..ops.recon import pack_frames
@@ -298,10 +308,11 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
     result = BatchResult()
 
     # production path: entropy-parse whole buckets straight into the
-    # slab staging the fused engine consumes; MINIVIDEO_TPU_NO_NATIVE=1
-    # keeps the raster path (the Python parsers)
+    # slab staging the fused engine consumes; the wave and np engines and
+    # MINIVIDEO_TPU_NO_NATIVE=1 keep the raster path
     recon = _Recon(device, engine)
-    use_slab = os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1"
+    use_slab = (recon.engine == "fused"
+                and os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1")
 
     with Manifest(manifest_path) as man:
         todo = man.pending(my_clips)
@@ -371,13 +382,13 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
                         owners.append((pc, fi))
                 packed = pack_frames(frames, pcs[0].sps, pcs[0].pps)
                 n_frames = len(frames)
-            # RGB formats: convert the whole batch on the device before
-            # the readback (ops/color.py) — same wiring as
-            # mv_decode(want_rgb=True)
+            # RGB formats on a device engine: convert the whole batch on
+            # the device before the readback (ops/color.py) — same wiring
+            # as mv_decode(want_rgb=True)
+            want_rgb = recon.engine != "np" and fmt in _RGB_FORMATS
             try:
                 with timer.stage("recon", n_frames), device_trace():
-                    ys, cbs, crs, rgbs = recon(packed,
-                                               want_rgb=fmt in _RGB_FORMATS)
+                    ys, cbs, crs, rgbs = recon(packed, want_rgb=want_rgb)
             except Exception as e:             # noqa: BLE001 — isolation
                 for pc in pcs:
                     man.failed(pc.path, error=f"recon: {e}")

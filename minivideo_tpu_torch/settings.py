@@ -31,9 +31,11 @@ import sys
 VERSION = (0, 5, 0)          # the JAX package's version
 VERSION_STR = ".".join(str(v) for v in VERSION)
 
-# reconstruction engines of the port: the fused wave engine (the CUDA
-# kernel on a GPU, its plain PyTorch version on the CPU)
-ENGINES = ("fused",)
+# reconstruction engines, as in the JAX package: the fused wave engine
+# (the CUDA kernel on a GPU, its plain PyTorch version on the CPU; the
+# port's default), the wave loop (torch ops on the decode's device) and
+# the numpy oracle (host)
+ENGINES = ("fused", "wave", "np")
 
 
 # Measured by chip_smoke.py's staging phase on an NVIDIA H100 80GB HBM3
@@ -94,8 +96,8 @@ def get_infos() -> dict:
     of "jax" and the CUDA cards as "devices".  The native libraries are
     built at first use and a failed build raises, so "native_runtime"
     is whether MINIVIDEO_TPU_NO_NATIVE leaves the native paths on now.
-    The port has one engine, decodes I_PCM and colors its traces on a
-    terminal, so those three keys are constants."""
+    "engine" is the default engine, "fused"; the port decodes I_PCM and
+    colors its traces on a terminal, so those keys are constants."""
     import torch
     return {
         "version": VERSION_STR,

@@ -96,6 +96,8 @@ def test_engines():
     from minivideo_tpu_torch.models.h264 import decoder as tdec
     assert tdec.resolve_engine("fused") == "fused"
     assert tdec.resolve_engine("jax") == "fused"
-    for engine in ("wave", "np", "bogus"):
+    for engine in ("wave", "np"):
+        assert tdec.resolve_engine(engine) == engine
+    for engine in ("bogus", "pallas"):
         with pytest.raises(ValueError):
             tdec.resolve_engine(engine)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports and decodes with JAX and the JAX
-package blocked, chip_smoke.py imports neither, the port's encoders emit
+package blocked (with every engine: fused, wave and np), chip_smoke.py
+imports neither, the port's encoders emit
 the fixture encoders' bytes, and chip_smoke.py's constants are the JAX
 package's digests of its 1080p stream (the CABAC stream's digests are
 checked in test_torch_parsers.py, so that xdist runs the two long tests
@@ -35,12 +36,17 @@ data = make_stream(width_mbs=4, height_mbs=3, n_pictures=2, seed=11,
                    profile=100, transform_8x8=True,
                    mb_kinds=("i16", "i4", "i8"))
 pics = decode_annexb(data, device="cpu")
+same = [all((a.y == b.y).all() and (a.cb == b.cb).all()
+            and (a.cr == b.cr).all() for a, b in
+            zip(pics, decode_annexb(data, engine=e, device="cpu")))
+        for e in ("wave", "np")]
 import chip_smoke
 loaded = sorted(n for n in sys.modules
                 if sys.modules[n] is not None
                 and n.split(".")[0] in ("jax", "jaxlib", "minivideo_tpu"))
 print(json.dumps({"modules": len(mods), "pictures": len(pics),
-                  "shape": list(pics[0].y.shape), "loaded": loaded}))
+                  "shape": list(pics[0].y.shape), "loaded": loaded,
+                  "same": same}))
 """
 
 
@@ -51,7 +57,8 @@ def test_port_runs_with_jax_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["pictures"] == 2 and out["shape"] == [48, 64]
-    assert out["modules"] >= 68 and out["loaded"] == []
+    assert out["modules"] >= 70 and out["loaded"] == []
+    assert out["same"] == [True, True]
 
 
 def _imports(path):
