@@ -113,6 +113,24 @@ Phases, each printing one line with its seconds:
                   the BAD_STREAMS through wave and np give BAD_DIGESTS;
                   batch_thumbnail(engine="wave", YUV420) over the 16 CAVLC
                   1080p files gives the JAX digests.
+ 15. scaleout   - the scale-out layer (parallel/sharding.py, halo.py,
+                  multihost.py) with meshes and process groups whose
+                  members share the card: (a) batch_thumbnail over a 2x2
+                  mesh of the card and the thumbnails phase's 19 files,
+                  YUV420 and PNG: the pinned digests, 4 wave-kernel
+                  launches per bucket (8), the corrupt clip black and
+                  failed, the stage times; (b) the halo in one process:
+                  the 1080p CAVLC and CABAC pairs (batch 2) over 2 strips
+                  give the first two JAX digests (the CABAC run traced
+                  with torch.profiler for its CUDA launches), and a 6x5-MB
+                  pair over 4 strips, a frame boundary on a strip
+                  boundary, gives the fused kernel's and np's planes;
+                  (c) run_multihost_dryrun with 2 processes on the card,
+                  2 mesh entries each, over 4 1080p CAVLC clip files:
+                  phase A 2 launches per process, the count reduce 4,
+                  phase B's 1080p halo across both processes, every
+                  picture of both phases equal to the JAX digests in both
+                  processes, the backend and the seconds per phase.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -421,7 +439,7 @@ def phase_cabac(t0, dev, streams):
     if digest != CABAC_SHA256:
         return False
     stream = repeat_pictures(data, BATCH // 2)
-    streams["cabac"] = stream
+    streams["cabac"], streams["cabac2"] = stream, data
     t = time.time()
     pics, launches = decode_counted(lambda: decode_annexb(stream))
     first_s = time.time() - t
@@ -1423,6 +1441,204 @@ def phase_engines(t0, dev, streams):
     return ok
 
 
+def card_mesh(dev, n, axis=None):
+    """A mesh of n entries that all name `dev`: 2 x 2 ("data", "seq")
+    by make_mesh, or one axis named `axis`."""
+    from minivideo_tpu_torch.parallel.sharding import Mesh, make_mesh
+    if axis is None:
+        return make_mesh(devices=[dev] * n)
+    import numpy as np
+    devs = np.empty(n, dtype=object)
+    devs[:] = [dev] * n
+    return Mesh(devs, (axis,))
+
+
+def scaleout_mesh(t0, dev, streams):
+    """(a) batch_thumbnail over a 2x2 mesh of the card: the thumbnails
+    phase's 19 files as YUV420 and PNG, pinned digests, 4 launches per
+    bucket."""
+    import shutil
+    import tempfile
+    ok = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        clips, want = write_thumbnail_clips(tmp, streams)
+        bad, n_good = clips[-1], len(clips) - 1
+        mesh = card_mesh(dev, 4)
+        planes = {}
+        for fmt in ("YUV420", "PNG"):
+            runs = []
+            for rep in range(3):
+                out = os.path.join(tmp, f"{fmt}{rep}")
+                (res, timer, secs, recons), launches = decode_counted(
+                    lambda: batch_run(clips, out, fmt, mesh=mesh))
+                runs.append((timer, secs, launches))
+                if rep:
+                    continue
+                files_ok, nbytes = thumbnail_files_ok(fmt, res, want,
+                                                      planes)
+                black, err_small = small_bucket_check(recons, dev)
+                good = (files_ok and res.done == n_good
+                        and res.failed == 1 and list(res.errors) == [bad]
+                        and launches == 8 and len(recons) == 2
+                        and black == [1] and err_small == 0)
+                ok = ok and good
+                log("scaleout", t0, f"batch_thumbnail {fmt} over a "
+                    f"{mesh.shape['data']}x{mesh.shape['seq']} mesh of "
+                    f"{dev}: {res.done} done, {res.failed} failed, "
+                    f"{len(res.outputs)} files ({nbytes} bytes), every file "
+                    f"{'=' if files_ok else '!='} its pinned digest, "
+                    f"wave_kernel launches {launches} (want 8: 4 mesh "
+                    f"entries x {len(recons)} buckets); small bucket black "
+                    f"rows {black}, kernel vs plain max|err| {err_small} "
+                    + ("ok" if good else "FAILED"))
+            stages = {k: statistics.median(r[0].acc[k] for r in runs)
+                      for k in runs[0][0].acc}
+            wall = statistics.median(r[1] for r in runs)
+            ok = ok and all(r[2] == 8 for r in runs)
+            log("scaleout", t0, f"{fmt} over the mesh, timing (host clock, "
+                f"s, median of 3 batches of {len(clips)} clips): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+                + f"; batch_thumbnail {wall:.4f} s, {n_good / wall:.2f} "
+                f"thumbnails/s; launches per batch {[r[2] for r in runs]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
+# the halo's small stream: maxw 4, batch 2 -> 8 lanes over 4 strips, the
+# frame-segment boundary on a strip boundary (tests/test_halo.py's)
+HALO_SMALL_KW = dict(width_mbs=6, height_mbs=5, n_pictures=2, seed=60,
+                     mb_kinds=("i16", "i4"), density=0.35, allow_pcm=True)
+
+
+def scaleout_halo(t0, dev, streams):
+    """(b) The halo in one process: the 1080p CAVLC and CABAC pairs over
+    2 strips of the card (the JAX digests; the CABAC run traced), and a
+    small stream over 4 strips (the fused engine's and np's planes)."""
+    import torch
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.ops.recon_wave import skew_tables
+    from minivideo_tpu_torch.parallel.halo import reconstruct_frames_halo
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    ok = True
+    for name, want in (("cavlc2", JAX_DIGESTS), ("cabac2", CABAC_DIGESTS)):
+        packed, _, _ = staged(streams[name], dev)
+        mesh = card_mesh(dev, 2, "lanes")
+
+        def run(packed=packed, mesh=mesh):
+            return reconstruct_frames_halo(packed, mesh)
+
+        t = time.time()
+        if name == "cabac2":
+            (planes, kinds), launches = decode_counted(
+                lambda: device_work(run))
+            what = f"traced; device activity (torch.profiler): {kinds}"
+        else:
+            planes, launches = decode_counted(run)
+            torch.cuda.synchronize()
+            what = "untraced"
+        secs = time.time() - t
+        on_card = all(p.device.type == "cuda" for p in planes)
+        same = plane_digests(planes) == want
+        good = same and on_card and launches == 0
+        ok = ok and good
+        lanes = packed.batch * skew_tables(packed.wmb, packed.hmb)["maxw"]
+        log("scaleout", t0, f"halo {name[:-1]} 1080p pair (batch 2, lane "
+            f"axis {lanes} over 2 strips of {dev}): planes "
+            f"{'=' if same else '!='} the JAX digests, wave_kernel "
+            f"launches {launches} (want 0); {secs:.3f} s ({what}) "
+            + ("ok" if good else "FAILED"))
+    data = make_stream(**HALO_SMALL_KW)
+    packed, _, _ = staged(data, dev)
+    t = time.time()
+    got = plane_digests(reconstruct_frames_halo(
+        packed, card_mesh(dev, 4, "lanes")))
+    secs = time.time() - t
+    fused = digests(decode_annexb(data))
+    np_ = digests(decode_annexb(data, engine="np"))
+    good = got == fused == np_
+    ok = ok and good
+    log("scaleout", t0, f"halo {HALO_SMALL_KW['width_mbs']}x"
+        f"{HALO_SMALL_KW['height_mbs']} MBs x2 (8 lanes over 4 strips, the "
+        f"frame boundary on a strip boundary): planes "
+        f"{'=' if good else '!='} the fused kernel's and np's; {secs:.3f} s "
+        + ("ok" if good else "FAILED"))
+    return ok
+
+
+def scaleout_multihost(t0, dev, streams):
+    """(c) run_multihost_dryrun: 2 processes on the card, 2 mesh entries
+    each, over 4 1080p CAVLC clip files; phase A 2 launches per process,
+    the count reduce 4, phase B's 1080p halo across both processes; the
+    saved planes give the JAX digests."""
+    import re
+    import shutil
+    import tempfile
+    import numpy as np
+    from minivideo_tpu_torch.parallel.multihost import run_multihost_dryrun
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mh_")
+    try:
+        files = []
+        for i in range(4):
+            files.append(os.path.join(tmp, f"clip{i}.264"))
+            with open(files[-1], "wb") as f:
+                f.write(picture_stream(streams["cavlc"], i % 2))
+        t = time.time()
+        try:
+            out = run_multihost_dryrun(nprocs=2, devices_per_proc=2,
+                                       timeout=600, clip_files=files,
+                                       out_dir=tmp)
+            err = None
+        except RuntimeError as e:
+            out, err = str(e), e
+        secs = time.time() - t
+        for line in out.splitlines():
+            if line.startswith("mh["):
+                log("scaleout", t0, "multihost " + line)
+        ok = err is None
+        for pid in range(2 if ok else 0):
+            z = np.load(os.path.join(tmp, f"mh_planes.{pid}.npz"))
+
+            def pics(ph, n):
+                return [[sha(z[f"{ph}_{k}"][i]) for k in ("y", "cb", "cr")]
+                        for i in range(n)]
+
+            n_b = z["b_y"].shape[0]
+            ok = (ok and n_b == 4
+                  and pics("a", len(z["a_clips"]))
+                  == [JAX_DIGESTS[c % 2] for c in z["a_clips"]]
+                  and pics("b", n_b) == [JAX_DIGESTS[i % 2]
+                                         for i in range(n_b)])
+        counts = re.findall(r"wave_kernel launches (\d+)", out)
+        backends = re.findall(r"backend (\w+)", out)
+        ok = (ok and counts == ["2", "2"] and len(backends) == 2
+              and out.count("reduce across processes = 4") == 2
+              and out.count("phase B OK") == 2)
+        log("scaleout", t0, f"run_multihost_dryrun: 2 processes x 2 mesh "
+            f"entries of the card, backend {backends}, phase A launches "
+            f"{counts} (want 2 per process), phase A and B planes "
+            f"{'=' if ok else '!='} the JAX digests in both processes; "
+            f"{secs:.3f} s with the workers' start "
+            + ("ok" if ok else f"FAILED {str(err)[-2000:] if err else ''}"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
+def phase_scaleout(t0, dev, streams):
+    """Scale-out on the card (see the docstring's phase 15).  Returns
+    whether every check held."""
+    ok = True
+    for part in (scaleout_mesh, scaleout_halo, scaleout_multihost):
+        t = time.time()
+        good = part(t0, dev, streams)
+        log("scaleout", t0, f"{part.__name__}: {time.time() - t:.2f} s "
+            + ("ok" if good else "FAILED"))
+        ok = ok and good
+    return ok
+
+
 def main():
     t0 = time.time()
     failed = []
@@ -1648,16 +1864,18 @@ def main():
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
 
-    # ---- 8.-14. CABAC, containers, staging layouts, Python parsers, bad
-    # slices, thumbnails, the wave/lane/np engines
-    streams = {"cavlc": stream}            # the 1080p batches of 16
+    # ---- 8.-15. CABAC, containers, staging layouts, Python parsers, bad
+    # slices, thumbnails, the wave/lane/np engines, scale-out
+    # the 1080p batches of 16, and the two pictures alone
+    streams = {"cavlc": stream, "cavlc2": data}
     for name, phase in (("cabac", phase_cabac),
                         ("containers", phase_containers),
                         ("staging", phase_staging),
                         ("parsers", phase_parsers),
                         ("bad slices", phase_bad_slices),
                         ("thumbnails", phase_thumbnails),
-                        ("engines", phase_engines)):
+                        ("engines", phase_engines),
+                        ("scaleout", phase_scaleout)):
         if not phase(t0, dev, streams):
             failed.append(name)
 

@@ -76,6 +76,47 @@ def _roll_left_seg(x, mask):
 # plain version of the wave kernel
 
 
+def wave_step(ry, rc, top_row, tr_row, top_c, meta, coefl, coefc, dcs,
+              tables, has8x8=True, haspcm=True):
+    """One wave of the TPU kernel's state machine on one lane strip.
+
+    ry / rc [24, l] are the row states (left column, corners) after the
+    wave's right roll; top_row / tr_row / top_c [16, l] the bottom rows
+    above and above-right after its left rolls; meta [META_ROWS, l]
+    int32 and coefl [256, l] / coefc [128, l] / dcs [DC_ROWS, l] the
+    strip's slice of the wave's feeds; tables the int32 scale tables
+    (t4, t8, tcb, tcr) on the strip's device.  Returns (tile [256, l],
+    ctile [128, l], row_y, row_c, bot_y, bot_c): the wave's int32 tiles,
+    the new row states, and the luma / chroma bottom rows that become
+    the next wave's botA (its botB is this wave's botA)."""
+    l = ry.shape[-1]
+    meta = meta.to(torch.int32)
+    parsed = meta[sl.R_PARSED:sl.R_PARSED + 1]
+    res_luma, res_chroma = sl.residual_from_slabs(
+        coefl.to(torch.int32), coefc.to(torch.int32), dcs.to(torch.int32),
+        meta, *tables, has8x8=has8x8, haspcm=haspcm)
+    tile, ctile = wave_compute_lane(
+        ry[:16], ry[16:17], top_row, tr_row, rc[:16], rc[16:17],
+        rc[17:18], top_c, meta[sl.R_KIND:sl.R_KIND + 1],
+        meta[sl.R_AL:sl.R_AL + 1] > 0, meta[sl.R_AT:sl.R_AT + 1] > 0,
+        meta[sl.R_ATL:sl.R_ATL + 1] > 0, meta[sl.R_ATR:sl.R_ATR + 1] > 0,
+        parsed, meta[sl.R_MODES4:sl.R_MODES4 + 16],
+        meta[sl.R_MODES8:sl.R_MODES8 + 4],
+        meta[sl.R_I16M:sl.R_I16M + 1], meta[sl.R_CMODE:sl.R_CMODE + 1],
+        res_luma, res_chroma, has8x8=has8x8, haspcm=haspcm)
+
+    # state updates: right column + corner, the new bottom rows
+    def zeros(n):
+        return torch.zeros((n, l), dtype=torch.int32, device=ry.device)
+
+    upd = parsed > 0
+    new_row = torch.cat([tile[15::16], top_row[15:16], zeros(7)])
+    new_rowc = torch.cat([ctile[7::8], top_c[7:8], top_c[15:16], zeros(6)])
+    return (tile, ctile, torch.where(upd, new_row, ry),
+            torch.where(upd, new_rowc, rc), tile[240:256],
+            torch.cat([ctile[56:64], ctile[120:128]]))
+
+
 def wave_loop_plain(meta_s, coefl_s, coefc_s, dcs_s, ls4, ls8, g, batch,
                     has8x8=True, haspcm=True):
     """The TPU kernel's grid loop in plain PyTorch.
@@ -89,8 +130,8 @@ def wave_loop_plain(meta_s, coefl_s, coefc_s, dcs_s, ls4, ls8, g, batch,
     dr0s, shtops = wave_schedule(g)
     mr, ml = (torch.as_tensor(m, device=dev)
               for m in _seg_masks(maxw, batch))
-    t4, t8, tcb, tcr = (torch.as_tensor(t, device=dev)
-                        for t in sl.scale_tables(ls4, ls8))
+    tables = tuple(torch.as_tensor(t, device=dev)
+                   for t in sl.scale_tables(ls4, ls8))
 
     def zeros(n):
         return torch.zeros((n, L), dtype=torch.int32, device=dev)
@@ -106,34 +147,13 @@ def wave_loop_plain(meta_s, coefl_s, coefc_s, dcs_s, ls4, ls8, g, batch,
         top_row = _roll_left_seg(botB_y, ml) if shtop == 1 else botB_y
         tr_row = _roll_left_seg(botA_y, ml) if dr0 == 0 else botA_y
         top_c = _roll_left_seg(botB_c, ml) if shtop == 1 else botB_c
-
-        meta = meta_s[w].to(torch.int32)
-        parsed = meta[sl.R_PARSED:sl.R_PARSED + 1]
-        res_luma, res_chroma = sl.residual_from_slabs(
-            coefl_s[w].to(torch.int32), coefc_s[w].to(torch.int32),
-            dcs_s[w].to(torch.int32), meta, t4, t8, tcb, tcr,
-            has8x8=has8x8, haspcm=haspcm)
-        tile, ctile = wave_compute_lane(
-            ry[:16], ry[16:17], top_row, tr_row, rc[:16], rc[16:17],
-            rc[17:18], top_c, meta[sl.R_KIND:sl.R_KIND + 1],
-            meta[sl.R_AL:sl.R_AL + 1] > 0, meta[sl.R_AT:sl.R_AT + 1] > 0,
-            meta[sl.R_ATL:sl.R_ATL + 1] > 0, meta[sl.R_ATR:sl.R_ATR + 1] > 0,
-            parsed, meta[sl.R_MODES4:sl.R_MODES4 + 16],
-            meta[sl.R_MODES8:sl.R_MODES8 + 4],
-            meta[sl.R_I16M:sl.R_I16M + 1], meta[sl.R_CMODE:sl.R_CMODE + 1],
-            res_luma, res_chroma, has8x8=has8x8, haspcm=haspcm)
+        tile, ctile, row_y, row_c, bot_y, bot_c = wave_step(
+            ry, rc, top_row, tr_row, top_c, meta_s[w], coefl_s[w],
+            coefc_s[w], dcs_s[w], tables, has8x8=has8x8, haspcm=haspcm)
         out_y[w] = tile.to(torch.uint8)
         out_c[w] = ctile.to(torch.uint8)
-
-        # state updates: right column + corner, double-buffered bottom rows
-        upd = parsed > 0
-        new_row = torch.cat([tile[15::16], top_row[15:16], zeros(7)])
-        row_y = torch.where(upd, new_row, ry)
-        new_rowc = torch.cat([ctile[7::8], top_c[7:8], top_c[15:16],
-                              zeros(6)])
-        row_c = torch.where(upd, new_rowc, rc)
-        botB_y, botA_y = botA_y, tile[240:256]
-        botB_c, botA_c = botA_c, torch.cat([ctile[56:64], ctile[120:128]])
+        botB_y, botA_y = botA_y, bot_y
+        botB_c, botA_c = botA_c, bot_c
     return out_y, out_c
 
 

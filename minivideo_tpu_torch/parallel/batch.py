@@ -1,6 +1,7 @@
-"""Batch thumbnailing on one device: N clips -> thumbnails.
+"""Batch thumbnailing, sharded across devices and processes: N clips ->
+thumbnails.
 
-Port of minivideo_tpu/parallel/batch.py, on one device.  This is the
+Port of minivideo_tpu/parallel/batch.py.  This is the
 batch equivalent of running the reference's mini_thumbnailer once per
 file (SURVEY.md §2.6: the reference is single threaded; the workload is
 embarrassingly parallel across clips).  The pipeline has four stages:
@@ -16,9 +17,12 @@ embarrassingly parallel across clips).  The pipeline has four stages:
                  only the owning clip.  Under MINIVIDEO_TPU_NO_NATIVE=1
                  the clips are parsed with the Python parsers into
                  raster staging instead;
-  device recon — the bucket batch is copied to the device and runs the
-                 fused engine once: csrc/wave_kernel.cu on the card, its
-                 plain PyTorch version on the CPU (the "wave" and "np"
+  device recon — the bucket batch is padded to the mesh size, split
+                 into one contiguous run of frames per mesh entry and
+                 copied to that entry's device (sharding.py), and each
+                 shard runs the fused engine once there:
+                 csrc/wave_kernel.cu on the card, its plain PyTorch
+                 version on the CPU (the "wave" and "np"
                  engines: raster staging through the wave loop,
                  ops/recon_wave.py, as the JAX module runs its wave
                  engine for both); for RGB formats the planes are
@@ -32,13 +36,15 @@ the 64-error tolerance, h264.c:181-187 — but scoped per clip, not
 per NALU).  Resume: clips already marked done in the manifest are
 skipped.
 
-Where the port differs from the JAX module: it runs on one device
-(`device`, the card unless the caller names another, as mv_decode), so
-there is no mesh and no padding of the batch to a mesh multiple; the
-process index and count default to 0 and 1; the JAX compile cache has
-no counterpart; and the RGB of RGB formats is converted before the
-readback instead of after it.  The decoder is imported only when the
-function is called, so importing this module loads no torch.
+Where the port differs from the JAX module: without a mesh it runs on
+one device (`device`, the card unless the caller names another, as
+mv_decode), a 1x1 mesh; a mesh may name one device more than once
+(sharding.py), and its shards run one after another from this process;
+the process index and count come from torch.distributed; the JAX compile
+cache has no counterpart; and the RGB of RGB formats is converted on
+each shard's device before the readback instead of after it.  The
+decoder is imported only when the function is called, so importing this
+module loads no torch.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import numpy as np
 from .. import trace
 from ..codecs import PictureFormat, PictureRepartition
 from .manifest import Manifest
+from .sharding import Mesh, shard_packed
 
 _RGB_FORMATS = (PictureFormat.PNG, PictureFormat.BMP, PictureFormat.TGA)
 
@@ -241,59 +248,100 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
 
 
 class _Recon:
-    """The bucket reconstruction on one device: the staging copy
-    (ops/recon_fused.to_device), the fused engine (reconstruct_frames_
-    fused: wave_kernel.cu on the card, the plain loop on the CPU) or, for
-    every other engine, the wave loop (reconstruct_frames_wave, raster
-    staging), the RGB conversion there when asked, and the readback.
-    The JAX class
+    """The bucket reconstruction over a mesh: the bucket padded to the
+    mesh size and split into one contiguous run of frames per mesh entry
+    (sharding.shard_packed, which pads on the entries' devices and is
+    also the staging copy), then per
+    entry, on its device: the fused engine (reconstruct_frames_fused:
+    one wave_kernel.cu launch on the card, the plain loop on the CPU) or,
+    for every other engine, the wave loop (reconstruct_frames_wave,
+    raster staging), and the RGB conversion there when asked; then the
+    readback, concatenated and trimmed to the real batch.  The JAX class
     caches one jitted, sharded function per (geometry, batch, features,
     layout); the port's reconstructors compile nothing per shape (the
     CUDA library is built once per checkout), so there is nothing to
     cache."""
 
-    def __init__(self, device, engine: str):
+    def __init__(self, mesh, engine: str):
         from ..models.h264.decoder import resolve_engine
-        self.device = device
+        self.mesh = mesh
         self.engine = resolve_engine(engine)
 
     def __call__(self, packed, want_rgb: bool = False):
         """packed: PackedFrames (any staging layout) -> (Y, Cb, Cr,
-        RGB or None) numpy, one row per frame."""
+        RGB or None) numpy, one row per real frame."""
+        import dataclasses
         from ..ops.color import yuv420_to_rgb_device
-        from ..ops.recon_fused import reconstruct_frames_fused, to_device
+        from ..ops.recon_fused import reconstruct_frames_fused
         from ..ops.recon_wave import reconstruct_frames_wave
         recon = (reconstruct_frames_fused if self.engine == "fused"
                  else reconstruct_frames_wave)
-        planes = recon(to_device(packed, self.device), self.device)
-        rgb = (yuv420_to_rgb_device(*planes).cpu().numpy()
-               if want_rgb else None)
-        return (*(p.cpu().numpy() for p in planes), rgb)
+        shards = shard_packed(self.mesh, packed.arrays, packed.ls4,
+                              packed.ls8)
+        outs = []
+        for (arrs, _, _), dev in zip(shards, self.mesh.devices.flat):
+            shard = dataclasses.replace(packed, arrays=arrs)
+            shard.__dict__["haspcm"] = packed.haspcm   # the batch's flag
+            planes = recon(shard, dev)
+            rgb = yuv420_to_rgb_device(*planes) if want_rgb else None
+            outs.append((*planes, rgb))
+        # every shard is launched before the first readback
+        host = [[p.cpu().numpy() for p in out if p is not None]
+                for out in outs]
+        cols = [np.concatenate(c)[:packed.batch] for c in zip(*host)]
+        return (*cols[:3], cols[3] if want_rgb else None)
+
+
+def _mesh_of(mesh, device):
+    """The mesh batch_thumbnail runs on: `mesh`, or the one resolved
+    device (the card unless `device` names another) as a 1x1 mesh."""
+    from ..device import resolve_device
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        return mesh
+    return Mesh(np.array([[resolve_device(device)]], dtype=object),
+                ("data", "seq"))
+
+
+def _process_group():
+    """(rank, world size) of the initialised torch.distributed process
+    group, else (0, 1): the counterpart of jax.process_index() /
+    jax.process_count()."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
                     mode=PictureRepartition.UNFILTERED,
                     fmt=PictureFormat.PNG, quality: int = 75,
-                    device=None, engine: str = "fused",
+                    mesh=None, device=None, engine: str = "fused",
                     manifest_path: str | None = None,
                     process_index: int | None = None,
                     process_count: int | None = None,
                     parse_workers: int | None = None,
                     io_workers: int = 8) -> BatchResult:
-    """Thumbnail a list of clips on one device (the card unless `device`
-    names another; "cpu" runs the engine's torch ops there).  engine:
-    "fused" (default), "wave" or "np" (both the wave loop, without
-    device RGB under "np").  process_index / process_count (default 0 /
-    1) take every process_count-th clip."""
-    from ..device import resolve_device
+    """Thumbnail a list of clips, sharded across the entries of `mesh`
+    (sharding.make_mesh) and across processes.  Without a mesh it runs
+    on one device: the card unless `device` names another ("cpu" runs
+    the engine's torch ops there); passing both raises.  engine: "fused"
+    (default; one wave_kernel launch per mesh entry and bucket on the
+    card), "wave" or "np" (both the wave loop, without device RGB under
+    "np").  process_index / process_count default to the rank and world
+    size of an initialised torch.distributed process group, else 0 / 1;
+    each process takes every process_count-th clip."""
     from ..export.image import export_picture
     from ..ops.recon import pack_frames
 
-    device = resolve_device(device)       # no card: raises
+    mesh = _mesh_of(mesh, device)        # no card: raises
+    device = mesh.devices.flat[0]
+    rank, world = _process_group()
     if process_index is None:
-        process_index = 0
+        process_index = rank
     if process_count is None:
-        process_count = 1
+        process_count = world
     my_clips = list(clips)[process_index::process_count]
 
     os.makedirs(outdir, exist_ok=True)
@@ -310,7 +358,7 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
     # production path: entropy-parse whole buckets straight into the
     # slab staging the fused engine consumes; the wave and np engines and
     # MINIVIDEO_TPU_NO_NATIVE=1 keep the raster path
-    recon = _Recon(device, engine)
+    recon = _Recon(mesh, engine)
     use_slab = (recon.engine == "fused"
                 and os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1")
 

@@ -20,11 +20,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "minivideo_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "minivideo_tpu", "tests", "fixtures")
 
-_BLOCKED_RUN = r"""
-import importlib, json, pkgutil, sys
+_BLOCK = r"""
+import sys
 for name in ("jax", "jaxlib", "minivideo_tpu"):
     sys.modules[name] = None
 sys.path.insert(0, REPO)
+"""
+_BLOCKED_RUN = r"""
+import importlib, json, pkgutil
 import minivideo_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(
     minivideo_tpu_torch.__path__, "minivideo_tpu_torch.")]
@@ -40,18 +43,51 @@ same = [all((a.y == b.y).all() and (a.cb == b.cb).all()
             and (a.cr == b.cr).all() for a, b in
             zip(pics, decode_annexb(data, engine=e, device="cpu")))
         for e in ("wave", "np")]
+import numpy as np, subprocess, torch
+from minivideo_tpu_torch.models.h264.recon_np import reconstruct_frame
+from minivideo_tpu_torch.ops.recon import pack_frames
+from minivideo_tpu_torch.parallel import halo, multihost, sharding
+mesh = sharding.Mesh(np.array(["cpu"] * 4, dtype=object), ("lanes",))
+parsed = [multihost._parse_clip_syntax(c)
+          for c in multihost._clip_streams(2)]
+planes = halo.reconstruct_frames_halo(pack_frames(
+    [(fs, som) for fs, _, _, som in parsed], parsed[0][1], parsed[0][2]),
+    mesh)
+halo_ok = all(torch.equal(planes[0][i], torch.as_tensor(
+    reconstruct_frame(*parsed[i])[0])) for i in range(2))
+# the workers, each with JAX and the JAX package blocked too
+init = multihost.free_init_method()
+worker = BLOCK + (
+    "from minivideo_tpu_torch.parallel.multihost import main\n"
+    "main(sys.argv[1:])\n"
+    "assert not [n for n in sys.modules if sys.modules[n] is not None\n"
+    "            and n.split('.')[0] in ('jax', 'jaxlib', 'minivideo_tpu')]\n"
+    "print('WORKER CLEAN')\n")
+procs = [subprocess.Popen(
+    [sys.executable, "-c", worker,
+     *multihost.worker_argv(i, 2, init, 2, "cpu")],
+    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for i in range(2)]
+outs = [p.communicate(timeout=240)[0] for p in procs]
+workers = [p.returncode == 0 and "MULTIHOST OK" in o and "WORKER CLEAN" in o
+           for p, o in zip(procs, outs)]
 import chip_smoke
 loaded = sorted(n for n in sys.modules
                 if sys.modules[n] is not None
                 and n.split(".")[0] in ("jax", "jaxlib", "minivideo_tpu"))
 print(json.dumps({"modules": len(mods), "pictures": len(pics),
                   "shape": list(pics[0].y.shape), "loaded": loaded,
-                  "same": same}))
+                  "same": same, "halo": halo_ok, "workers": workers,
+                  "worker_out": [o[-1500:] for o in outs]}))
 """
 
 
 def test_port_runs_with_jax_blocked():
-    code = "REPO = %r\n" % REPO + _BLOCKED_RUN
+    """Every module of the port imports, decodes with each engine, runs
+    a halo over 4 CPU strips and two multihost workers (themselves with
+    both blocked) with JAX and the JAX package blocked."""
+    head = "REPO = %r\n" % REPO + _BLOCK
+    code = head + "BLOCK = %r\n" % head + _BLOCKED_RUN
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -59,6 +95,8 @@ def test_port_runs_with_jax_blocked():
     assert out["pictures"] == 2 and out["shape"] == [48, 64]
     assert out["modules"] >= 70 and out["loaded"] == []
     assert out["same"] == [True, True]
+    assert out["halo"], "halo planes differ from recon_np"
+    assert out["workers"] == [True, True], out["worker_out"]
 
 
 def _imports(path):
