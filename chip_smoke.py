@@ -131,6 +131,24 @@ Phases, each printing one line with its seconds:
                   phase B's 1080p halo across both processes, every
                   picture of both phases equal to the JAX digests in both
                   processes, the backend and the seconds per phase.
+ 16. bench      - (a) a real encoder's stream (testing/streams.X264_STREAM:
+                  libx264, 128x96, 2 pictures, 4 slices, CABAC with 8x8;
+                  this host has no libavcodec) decoded on the card: its
+                  pictures equal libavcodec's digests, one launch; (b) the
+                  port's bench (minivideo_tpu_torch/bench.py, BENCH_ARGS)
+                  in-process on the 1080p streams with
+                  MINIVIDEO_TPU_PROFILE set to a scratch directory: its
+                  output check (both staging layouts and 8x8 bit-exact
+                  with the numpy oracle) and its checked pipeline runs
+                  (every batch of 4 streams equal to the first and to the
+                  oracle) must hold, the traces of the device stage and of
+                  a pipeline run must count one wave-kernel launch per
+                  batch and, for the run, 7 copy calls per batch (host
+                  side: the profiler drops some of the card's records in
+                  a process this old; the card's kernel and copy records
+                  are printed beside), and the launches counted must
+                  equal the bench's own; its JSON line's figures and the
+                  trace counts are printed.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -1639,6 +1657,98 @@ def phase_scaleout(t0, dev, streams):
     return ok
 
 
+# the bench phase's arguments: python -m minivideo_tpu_torch.bench's
+# defaults (1080p, batch 16, 16 batches a run, 3 runs)
+BENCH_ARGS = ["--iters", "16", "--runs", "3"]
+
+
+def bench_x264(t0):
+    """The committed libx264 stream on the card against libavcodec."""
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.ops import recon_fused
+    from minivideo_tpu_torch.testing import streams as st
+    with open(st.X264_STREAM, "rb") as f:
+        data = f.read()
+    recon_fused.wave_kernel_cuda.launches = 0
+    pics = decode_annexb(data)
+    launches = recon_fused.wave_kernel_cuda.launches
+    got = [[sha(a) for a in p.cropped()] for p in pics]
+    ok = (hashlib.sha256(data).hexdigest() == st.X264_SHA256
+          and got == st.X264_LAVC_DIGESTS and launches == 1)
+    log("bench", t0, f"libx264 stream ({len(data)} B, 4 slices, CABAC, "
+        f"8x8) on the card: {len(pics)} pictures "
+        f"{'=' if got == st.X264_LAVC_DIGESTS else '!='} libavcodec's "
+        f"digests, wave_kernel launches {launches} (want 1) "
+        + ("ok" if ok else "FAILED"))
+    return ok
+
+
+def phase_bench(t0, dev, streams):
+    """The real-encoder stream and the port's bench on the card (see the
+    docstring's phase 16).  Returns whether every check held."""
+    import shutil
+    import tempfile
+    from minivideo_tpu_torch import bench
+    from minivideo_tpu_torch.ops import recon_fused
+    ok = bench_x264(t0)
+    t = time.time()
+    prof = tempfile.mkdtemp(prefix="bench_trace_")
+    try:
+        with env(MINIVIDEO_TPU_PROFILE=prof):
+            recon_fused.wave_kernel_cuda.launches = 0
+            res = bench.run(BENCH_ARGS)
+            launches = recon_fused.wave_kernel_cuda.launches
+    except Exception as e:                    # noqa: BLE001 - reported
+        log("bench", t0, f"bench {BENCH_ARGS} FAILED: {e!r}")
+        return False
+    finally:
+        shutil.rmtree(prof, ignore_errors=True)
+    secs = time.time() - t
+    it, tr = res["iters"], res["trace"]
+    dtr, ptr = tr["device_stage"], tr["pipeline"]
+    checks = {
+        "output check": res["output_check"] == "bit-exact",
+        "4 checked pipeline runs": res["checked_runs"] == 4,
+        "device-stage trace: 1 launch a batch":
+            dtr["wave_kernel_launches"] == it,
+        "pipeline trace: 1 launch a batch":
+            ptr["wave_kernel_launches"] == it,
+        # 4 staging copies in and 3 plane copies out per batch
+        "pipeline trace: the copies' calls": ptr["memcpy_calls"] >= 7 * it,
+        "launches = the bench's": launches == res["wave_kernel_launches"]
+        > 0,
+        "transfer included": res["transfer_included"] is True}
+    x8 = res["high_profile_8x8"]
+    log("bench", t0, f"bench {BENCH_ARGS} ({res['stream']} streams, "
+        f"{res['staging']} staging, {res['host_cores']} host cores, "
+        f"threads {res['threads']}) in {secs:.2f}s: overlapped pictures/s "
+        f"(median, best of {res['runs']}; both copies included) CAVLC "
+        f"{res['value_cavlc']:.2f}, {res['value_cavlc_best']:.2f}; CABAC "
+        f"{res['value_cabac']:.2f}, {res['value_cabac_best']:.2f}; 8x8 "
+        f"CAVLC {x8['e2e_median']['cavlc']:.2f}, "
+        f"{x8['e2e_best']['cavlc']:.2f}; 8x8 CABAC "
+        f"{x8['e2e_median']['cabac']:.2f}, {x8['e2e_best']['cabac']:.2f}; "
+        f"device_fps {res['device_fps']:.1f} (records "
+        f"{res['device_fps_records_staging']:.1f}; 8x8 "
+        f"{x8['device_fps']:.1f}, {x8['device_fps_records_staging']:.1f}); "
+        f"entropy fps CAVLC {res['entropy_cavlc_fps']:.1f} CABAC "
+        f"{res['entropy_cabac_fps']:.1f}; thumbnails/s "
+        f"{res['thumbnails_per_s']}; 4-slice latency "
+        f"{res['slice_parallel']}; ring {res['ring']}")
+    for name, t_ in (("device stage", dtr), ("pipeline run", ptr)):
+        log("bench", t0, f"trace of the {name}: wave_kernel launches "
+            f"{t_['wave_kernel_launches']} (batches {it}), wave_kernel run "
+            f"on the card {t_['wave_kernel']}, cudaMemcpy calls "
+            f"{t_['memcpy_calls']}, other kernels "
+            f"{t_['other_kernels']}, H2D {t_['h2d']}, D2H {t_['d2h']}, "
+            f"busy {t_['busy_ms']:.3f} of {t_['window_ms']:.3f} ms "
+            f"({100 * t_['busy_share']:.2f}%)")
+    log("bench", t0, "result " + json.dumps(res))
+    log("bench", t0, "; ".join(f"{k}: {'ok' if v else 'FAILED'}"
+                               for k, v in checks.items()))
+    return ok and all(checks.values())
+
+
 def main():
     t0 = time.time()
     failed = []
@@ -1864,8 +1974,8 @@ def main():
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
 
-    # ---- 8.-15. CABAC, containers, staging layouts, Python parsers, bad
-    # slices, thumbnails, the wave/lane/np engines, scale-out
+    # ---- 8.-16. CABAC, containers, staging layouts, Python parsers, bad
+    # slices, thumbnails, the wave/lane/np engines, scale-out, the bench
     # the 1080p batches of 16, and the two pictures alone
     streams = {"cavlc": stream, "cavlc2": data}
     for name, phase in (("cabac", phase_cabac),
@@ -1875,7 +1985,8 @@ def main():
                         ("bad slices", phase_bad_slices),
                         ("thumbnails", phase_thumbnails),
                         ("engines", phase_engines),
-                        ("scaleout", phase_scaleout)):
+                        ("scaleout", phase_scaleout),
+                        ("bench", phase_bench)):
         if not phase(t0, dev, streams):
             failed.append(name)
 

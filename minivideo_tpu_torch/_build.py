@@ -40,8 +40,9 @@ def _run_all(name, argvs, timeout):
 
 
 def build_shared(name: str, sources, cmd, timeout: int = 300,
-                 compile_cmd=None) -> str:
-    """Compile `sources` into `_build/lib<name>-<hash>.so` unless present.
+                 compile_cmd=None, binary: bool = False) -> str:
+    """Compile `sources` into `_build/lib<name>-<hash>.so` (with `binary`,
+    the executable `_build/<name>-<hash>`) unless present.
 
     `cmd(out_path, inputs)` returns the argv that writes the library to
     out_path from `inputs`: the sources themselves or, with
@@ -62,7 +63,8 @@ def build_shared(name: str, sources, cmd, timeout: int = 300,
     h.update(" ".join(cmd("OUT", sources)).encode())
     if compile_cmd is not None:
         h.update(" ".join(compile_cmd("SRC", "OBJ")).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    tag = f"{name}-{h.hexdigest()[:16]}"
+    out = os.path.join(BUILD_DIR, tag if binary else f"lib{tag}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -88,6 +88,10 @@ __device__ long long* g_phases;
 #define PHASE(i, v)
 #endif
 
+// MVT_HOLD_ROW (tests/test_torch_gpu_bench.py) holds frame 0's row 0
+// before its first publish for twice the wait bound, so that row 1's wait
+// for it times out: the error word is set and check_waits() must raise
+
 constexpr int META_ROWS = 40;
 constexpr int KIND_I4x4 = 0;
 constexpr int KIND_I16x16 = 1;
@@ -838,6 +842,13 @@ __device__ void consumer(const Args& a, Smem& sm, int b, int r, int lane) {
 
     // ---- publish MB (r, c); hand the stage back ----
     PHASE(6, clock64());
+#ifdef MVT_HOLD_ROW
+    if (lane == 0 && b == 0 && r == 0 && c == 0) {
+      const long long t0 = clock64();
+      while (clock64() - t0 < 2 * TIMEOUT_CYCLES) {
+      }
+    }
+#endif
     __threadfence();
     __syncwarp();
     if (lane == 0) st_release(prog, c + 1);

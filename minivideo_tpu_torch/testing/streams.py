@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 from ..models.h264.nalu import split_annexb
 
 # the 1080p workload: make_stream(**STREAM_1080P) from testing.h264enc, a
@@ -72,3 +74,23 @@ def bad_stream(name: str, make_stream) -> bytes:
     if name == "joined_id0":
         return make_stream(**kw) + make_stream(**spoil)
     return cut_idr(make_stream(**kw), **spoil)
+
+
+# a real encoder's stream, for hosts without libavcodec (chip_smoke.py):
+# libx264 through tools/x264_fixture.c, 128x96, 2 IDR pictures, QP 24,
+# CABAC, 8x8 transform, seed 37, 4 slices per picture (the arguments of
+# tests/test_golden_x264.py::test_x264_multislice_cabac_8x8), with the
+# SHA-256 of the stream and of libavcodec's (Y, Cb, Cr) of each picture
+# (tools/h264_lavc_decode.c)
+X264_STREAM = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "x264_128x96_cabac8x8_s4.264")
+X264_SHA256 = ("e77420ec2dc918d3b0dc73becb411e01"
+               "854055eb642e90abfe84681216f20a2a")
+X264_LAVC_DIGESTS = [
+    ["c8cc7918f906e9be446623c47d5b47854df8ab841d88db5aa492b9a8bad1ac23",
+     "7a3cae62a0f31bd779d019462b2d659217a74ca76061e481e42a7af11c97a179",
+     "e9cc9902f50d7c53a18f196c90a70950f23d276a9492164ade7cb8c6017ed028"],
+    ["14ba39f098682397f2effc02e0a0e65c3909050a2bec49bb8763aed47adb878c",
+     "bee13ccf809839ccd4d36c4f4b795bef76de535113b0b3dde593894951b75131",
+     "24b9417c11619940ca69ec447aebf9a42018c6b633eae1dfb0958d7c27a94541"],
+]

@@ -1,6 +1,6 @@
 """The port stands alone: it imports and decodes with JAX and the JAX
-package blocked (with every engine: fused, wave and np), chip_smoke.py
-imports neither, the port's encoders emit
+package blocked (with every engine: fused, wave and np; the bench too),
+chip_smoke.py imports neither, the port's encoders emit
 the fixture encoders' bytes, and chip_smoke.py's constants are the JAX
 package's digests of its 1080p stream (the CABAC stream's digests are
 checked in test_torch_parsers.py, so that xdist runs the two long tests
@@ -71,6 +71,19 @@ procs = [subprocess.Popen(
 outs = [p.communicate(timeout=240)[0] for p in procs]
 workers = [p.returncode == 0 and "MULTIHOST OK" in o and "WORKER CLEAN" in o
            for p, o in zip(procs, outs)]
+# the bench at a small size on the CPU (one intra-op thread: its loops of
+# small torch ops run faster on one), its stream cache in a scratch dir
+import shutil, tempfile
+from minivideo_tpu_torch import bench
+torch.set_num_threads(1)
+bench.CACHE = tempfile.mkdtemp()
+try:
+    res = bench.run(["--device", "cpu", "--size", "96x64", "--batch", "2",
+                     "--iters", "3", "--runs", "1"])
+finally:
+    shutil.rmtree(bench.CACHE)
+bench_ok = (res["output_check"] == "bit-exact" and res["checked_runs"] == 4
+            and res["transfer_included"] and res["value"] > 0)
 import chip_smoke
 loaded = sorted(n for n in sys.modules
                 if sys.modules[n] is not None
@@ -78,14 +91,16 @@ loaded = sorted(n for n in sys.modules
 print(json.dumps({"modules": len(mods), "pictures": len(pics),
                   "shape": list(pics[0].y.shape), "loaded": loaded,
                   "same": same, "halo": halo_ok, "workers": workers,
+                  "bench": bench_ok,
                   "worker_out": [o[-1500:] for o in outs]}))
 """
 
 
 def test_port_runs_with_jax_blocked():
     """Every module of the port imports, decodes with each engine, runs
-    a halo over 4 CPU strips and two multihost workers (themselves with
-    both blocked) with JAX and the JAX package blocked."""
+    a halo over 4 CPU strips, two multihost workers (themselves with
+    both blocked) and the bench (`--device cpu`, 6x4 MBs, batch 2, 3
+    iterations) with JAX and the JAX package blocked."""
     head = "REPO = %r\n" % REPO + _BLOCK
     code = head + "BLOCK = %r\n" % head + _BLOCKED_RUN
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -97,6 +112,7 @@ def test_port_runs_with_jax_blocked():
     assert out["same"] == [True, True]
     assert out["halo"], "halo planes differ from recon_np"
     assert out["workers"] == [True, True], out["worker_out"]
+    assert out["bench"], "the bench's checks or figures failed"
 
 
 def _imports(path):
