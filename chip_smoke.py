@@ -61,7 +61,20 @@ Phases, each printing one line with its seconds:
                   files: tables equal to the native demuxer's, and the
                   pictures decoded from the Python tables give the JAX
                   digests.
- 10. staging    - the 1080p CAVLC batch through the three staging layouts
+ 10. files      - the same 1080p CAVLC and CABAC batches written into AVI,
+                  MPEG-PS and raw ES files and decoded through mv_open,
+                  mv_parse and mv_decode on the card with the native
+                  demuxer: the AVI and ES files give the JAX digests with
+                  one launch, the MPEG-PS files what the JAX package gives
+                  (PS_DIGESTS: no picture), the Python demuxers' tables
+                  equal the native ones, with demux, stream assembly and
+                  pictures/s; the 1080p stream with custom scaling lists
+                  (SCALING_LISTS) repeated to 16 pictures through
+                  decode_annexb gives SCALING_DIGESTS with one launch; the
+                  extractor (ES, PES) and the analyser (--json) on the AVI
+                  and MPEG-PS files give the JAX apps' outputs
+                  (APP_DIGESTS).
+ 11. staging    - the 1080p CAVLC batch through the three staging layouts
                   (MINIVIDEO_TPU_STAGING=device and =records through
                   decode_annexb; raster: the full native parse, pack_frames
                   and reconstruct_batch), each giving the JAX digests with
@@ -69,13 +82,13 @@ Phases, each printing one line with its seconds:
                   prep and kernel ms (CUDA events), pictures/s.  Then the
                   four staging constants of minivideo_tpu_torch/settings.py
                   measured on this host, and what "auto" picks.
- 11. parsers    - small CAVLC and CABAC streams (8x8, I_PCM, 3 slices)
+ 12. parsers    - small CAVLC and CABAC streams (8x8, I_PCM, 3 slices)
                   decoded under MINIVIDEO_TPU_NO_NATIVE=1 (the Python
                   parsers) equal the native parse's planes.
- 12. bad slices - streams with bad IDR pictures (testing/streams.py
+ 13. bad slices - streams with bad IDR pictures (testing/streams.py
                   BAD_STREAMS) give the JAX package's pictures, digests
                   pinned, as the reference drops the bad ones.
- 13. thumbnails - batch_thumbnail (parallel/batch.py) on the card over 19
+ 14. thumbnails - batch_thumbnail (parallel/batch.py) on the card over 19
                   files: the two 1080p CAVLC pictures alternating in 8
                   MP4, 4 Matroska and 4 MPEG-TS files, the CABAC MP4, a
                   4x3-MB clip and a 4x3-MB clip whose slice data is
@@ -95,7 +108,7 @@ Phases, each printing one line with its seconds:
                   16-picture MP4; mv_extract of its video track to ES
                   (SHA-256 pinned), decoded on the card to the JAX
                   digests.
- 14. engines    - the "wave" and "np" engines and the lane loop, which
+ 15. engines    - the "wave" and "np" engines and the lane loop, which
                   launch neither kernel (torch ops on the card; numpy on
                   the host): decode_annexb(engine="wave") of the 1080p
                   CAVLC and CABAC batches of 16 gives the JAX digests from
@@ -113,7 +126,7 @@ Phases, each printing one line with its seconds:
                   the BAD_STREAMS through wave and np give BAD_DIGESTS;
                   batch_thumbnail(engine="wave", YUV420) over the 16 CAVLC
                   1080p files gives the JAX digests.
- 15. scaleout   - the scale-out layer (parallel/sharding.py, halo.py,
+ 16. scaleout   - the scale-out layer (parallel/sharding.py, halo.py,
                   multihost.py) with meshes and process groups whose
                   members share the card: (a) batch_thumbnail over a 2x2
                   mesh of the card and the thumbnails phase's 19 files,
@@ -131,7 +144,7 @@ Phases, each printing one line with its seconds:
                   phase B's 1080p halo across both processes, every
                   picture of both phases equal to the JAX digests in both
                   processes, the backend and the seconds per phase.
- 16. bench      - (a) a real encoder's stream (testing/streams.X264_STREAM:
+ 17. bench      - (a) a real encoder's stream (testing/streams.X264_STREAM:
                   libx264, 128x96, 2 pictures, 4 slices, CABAC with 8x8;
                   this host has no libavcodec) decoded on the card: its
                   pictures equal libavcodec's digests, one launch; (b) the
@@ -777,6 +790,210 @@ def phase_containers(t0, dev, streams):
                 + ("ok" if good else "FAILED"))
     finally:
         import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
+# the files phase: the scaling lists of the kernel phase's SMALL[4]
+# stream on the 1080p stream, make_stream(**STREAM_KW, **SCALING_LISTS)
+SCALING_LISTS = dict(scaling_lists=SMALL[4]["scaling_lists"],
+                     pps_scaling_lists=SMALL[4]["pps_scaling_lists"])
+SCALING_SHA256 = ("03f7bafffc195b6036eceda599219681"
+                  "e3a2d2b9e2b615929b84de0ce135b04b")
+# (Y, Cb, Cr) SHA-256 per picture of that stream from the JAX package's
+# decode_annexb(engine="fused") with device-layout staging, on the CPU
+SCALING_DIGESTS = [
+    ["b0e2c57620d0cc20b5e6a64d5fd42208f28fa2a65ee0137344c9628c15e10167",
+     "9ceb74a5aaa721ac449c48fa0947ee52936d1c10f2d10332d383e85ab5d0ca69",
+     "1cf89a6b51b9eab6ecf512c7d5a7cb200abf56779e9a63327916b5a64592a586"],
+    ["10fce1ca24343d5d6908ccf43e363cc30ac5c753b1d6bb037fc10094eb7d1243",
+     "4ec9f41e8048e37322a10b8b4af9e53b43bae7920611d25613f33036a391a3f9",
+     "2afec10f82dae37a1237ba680670604c04fcb8d14175c4fb3a6072aec74ffec0"],
+]
+# the pictures the JAX package's mv_decode(picture_number=16) returns from
+# the MPEG-PS files of write_container_files: none.  A 1080p picture spans
+# several PES packets; both packages' PS demuxers take each packet as a
+# sample and only the packet that starts an IDR picture as a sync sample,
+# so every picture selected is cut to its first packet and fails to parse
+# (the AVI and ES files give JAX_DIGESTS / CABAC_DIGESTS)
+PS_DIGESTS = []
+# per file of write_container_files (the 16-picture 1080p batches), the
+# SHA-256 of what the JAX package's extractor writes (ES and --pes, by
+# file name) and of its analyser's --json output with the file's path
+# replaced by its name (app_outputs, run on the JAX apps on the CPU)
+APP_DIGESTS = {
+    "cavlc.avi": {
+        "es": {"cavlc_track0.264": "3fbd3bac4cbeda4f0d2e25a98199f6c8"
+                                   "23412ad658d0d33db1f245b633d9186f"},
+        "pes": {"cavlc_track0.pes": "78ae8d6374d807ffa34af5a5b33c3ca3"
+                                    "a98a8bc2e128ddf9dd6600800f9585a0"},
+        "json": "fb40b80fa050f1ca27e7029971f15a64"
+                "e30a1a7e777adcb77e6483b0898c9c77"},
+    "cavlc.mpg": {
+        "es": {"cavlc_track0.264": "4cf075837d36b4edc9d34c5b3db6097b"
+                                   "5958b9e31e1c4f9707f46950c0f44cbb"},
+        "pes": {"cavlc_track0.pes": "26529420cb2cb8e7ae27cddd5414a6a4"
+                                    "4689b7de8a97db1b9f5da2b45486fb78"},
+        "json": "22e414a217b808259849f993fc73d1ad"
+                "1a92e579dd56d0c856f860b5daf44a36"},
+    "cabac.avi": {
+        "es": {"cabac_track0.264": "3ab283c07f17e0ccf9e97424ee2c02b5"
+                                   "a13fa316cf7a54b5f658f5f56ccfe36c"},
+        "pes": {"cabac_track0.pes": "20925127e45316b98c994d55e1b6278a"
+                                    "7366c721550e2b8e006157048f46264a"},
+        "json": "dd67e7abc57f8f18cd79b37aea379ba3"
+                "720dc13aa51d00e4b8dad631d21e490e"},
+    "cabac.mpg": {
+        "es": {"cabac_track0.264": "3287c4ef6d19142767f04b1a95af9106"
+                                   "10ef41e79cd2946213ecb2fc8b8f81f3"},
+        "pes": {"cabac_track0.pes": "fdd6d3105173e4fe3444d19b1dbd1127"
+                                    "5c33848ebe0c2259178112c555305a84"},
+        "json": "5bbf97532c68a5ffa5e6bf117375cd07"
+                "6701c6149be48a13f399d4fbbc924bd9"},
+}
+
+
+def write_container_files(tmp, streams):
+    """The 1080p CAVLC and CABAC batches of 16 as AVI, MPEG-PS and raw ES
+    files in `tmp`: {(entropy, extension): path}."""
+    from minivideo_tpu_torch.testing import containers as C
+    writers = {"avi": lambda s: C.write_avi(s, 1920, 1088),
+               "mpg": C.write_ps, "264": lambda s: s}
+    files = {}
+    for entropy in ("cavlc", "cabac"):
+        for ext, write in writers.items():
+            path = os.path.join(tmp, f"{entropy}.{ext}")
+            with open(path, "wb") as f:
+                f.write(write(streams[entropy]))
+            files[entropy, ext] = path
+    return files
+
+
+def app_outputs(extractor, analyser, path):
+    """SHA-256 of the outputs of the `extractor` and `analyser` apps'
+    main() for the file `path`: {"es": {name: sha}, "pes": {name: sha},
+    "json": sha of the analyser's --json output with `path` replaced by
+    its file name}.  Raises where an app exits non-zero."""
+    import contextlib
+    import io
+    import tempfile
+    out = {}
+    for mode in ("es", "pes"):
+        d = tempfile.mkdtemp(dir=os.path.dirname(path))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = extractor.main(["-i", path, "-o", d]
+                                + (["--pes"] if mode == "pes" else []))
+        if rc != 0:
+            raise RuntimeError(f"extractor {mode} exited {rc} on {path}")
+        out[mode] = {}
+        for written in buf.getvalue().split():
+            with open(written, "rb") as f:
+                out[mode][os.path.basename(written)] = \
+                    hashlib.sha256(f.read()).hexdigest()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analyser.main([path, "--json"])
+    if rc != 0:
+        raise RuntimeError(f"analyser exited {rc} on {path}")
+    text = buf.getvalue().replace(path, os.path.basename(path))
+    out["json"] = hashlib.sha256(text.encode()).hexdigest()
+    return out
+
+
+def phase_files(t0, dev, streams):
+    """The 1080p batches from AVI, MPEG-PS and raw ES files through the
+    user's entry points and the native demuxer, the 1080p stream with
+    custom scaling lists, and the extractor and analyser apps on the
+    AVI and MPEG-PS files."""
+    import shutil
+    import tempfile
+    from minivideo_tpu_torch.api import mv_close, mv_open, mv_parse
+    from minivideo_tpu_torch.apps import analyser, extractor
+    from minivideo_tpu_torch.containers.native import native_demux
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    from minivideo_tpu_torch.testing.streams import repeat_pictures
+    ok = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        files = write_container_files(tmp, streams)
+        for (entropy, ext), path in files.items():
+            pinned = JAX_DIGESTS if entropy == "cavlc" else CABAC_DIGESTS
+            want = ([pinned[i % len(pinned)] for i in range(BATCH)]
+                    if ext != "mpg" else PS_DIGESTS)
+            (pics, first), launches = decode_counted(
+                lambda: mv_decode_split(path))
+            splits = [first] + [mv_decode_split(path)[1] for _ in range(2)]
+            split = {k: statistics.median(sp[k] for sp in splits)
+                     for k in splits[0]}
+            # the native demuxer's tables against the Python demuxers'
+            native = mv_open(path)
+            try:
+                native_ok = native_demux(native)
+                with env(MINIVIDEO_TPU_NO_NATIVE="1"):
+                    python = mv_open(path)
+                    try:
+                        tables = (native_ok
+                                  and mv_parse(python, audio=False,
+                                               subs=False)
+                                  and same_tracks(native, python))
+                    finally:
+                        mv_close(python)
+            finally:
+                mv_close(native)
+            want_launches = 1 if want else 0
+            good = (digests(pics) == want and launches == want_launches
+                    and tables)
+            ok = ok and good
+            log("files", t0, f"{entropy} {ext} ({os.path.getsize(path)} "
+                f"bytes): mv_decode {len(pics)} pictures (JAX package: "
+                f"{len(want)}), planes "
+                f"{'=' if digests(pics) == want else '!='} JAX digests, "
+                f"wave_kernel launches {launches} (want {want_launches}), "
+                f"Python demux "
+                f"tables {'=' if tables else '!='} native; host clock, s, "
+                f"median of 3: demux (native) {split['demux']:.4f}, stream "
+                f"assembly {split['assembly']:.4f}, decode_annexb "
+                f"{split['decode_annexb']:.4f}; "
+                f"{BATCH / split['total']:.2f} pictures/s "
+                + ("ok" if good else "FAILED"))
+
+        # custom scaling lists at 1080p
+        t = time.time()
+        data = make_stream(**STREAM_KW, **SCALING_LISTS)
+        digest = hashlib.sha256(data).hexdigest()
+        encode_s = time.time() - t
+        stream = repeat_pictures(data, BATCH // 2)
+        t = time.time()
+        pics, launches = decode_counted(lambda: decode_annexb(stream))
+        decode_s = time.time() - t
+        want = [SCALING_DIGESTS[i % len(SCALING_DIGESTS)]
+                for i in range(BATCH)]
+        good = (digest == SCALING_SHA256 and digests(pics) == want
+                and launches == 1 and pics[0].y.shape == (1088, 1920))
+        ok = ok and good
+        log("files", t0, f"1080p scaling lists x2 encoded in {encode_s:.2f}s"
+            f", sha256 {'=' if digest == SCALING_SHA256 else '!='} pinned; "
+            f"decode_annexb {len(pics)} pictures in {decode_s:.3f}s, planes "
+            f"{'=' if digests(pics) == want else '!='} SCALING_DIGESTS, "
+            f"wave_kernel launches {launches} (want 1) "
+            + ("ok" if good else "FAILED"))
+
+        # the extractor and analyser apps on the AVI and MPEG-PS files
+        for key in [k for k in files if k[1] != "264"]:
+            name = os.path.basename(files[key])
+            t = time.perf_counter()
+            got = app_outputs(extractor, analyser, files[key])
+            apps_s = time.perf_counter() - t
+            good = got == APP_DIGESTS[name]
+            ok = ok and good
+            log("files", t0, f"{name}: extractor ES "
+                f"{sorted(got['es'])}, PES {sorted(got['pes'])}, analyser "
+                f"--json: {'=' if good else '!='} the JAX apps' pins "
+                f"({apps_s:.3f}s, host clock) "
+                + ("ok" if good else f"FAILED: {got}"))
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return ok
 
@@ -1974,12 +2191,14 @@ def main():
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
 
-    # ---- 8.-16. CABAC, containers, staging layouts, Python parsers, bad
-    # slices, thumbnails, the wave/lane/np engines, scale-out, the bench
+    # ---- 8.-17. CABAC, containers, files, staging layouts, Python
+    # parsers, bad slices, thumbnails, the wave/lane/np engines,
+    # scale-out, the bench
     # the 1080p batches of 16, and the two pictures alone
     streams = {"cavlc": stream, "cavlc2": data}
     for name, phase in (("cabac", phase_cabac),
                         ("containers", phase_containers),
+                        ("files", phase_files),
                         ("staging", phase_staging),
                         ("parsers", phase_parsers),
                         ("bad slices", phase_bad_slices),

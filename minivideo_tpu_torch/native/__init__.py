@@ -4,10 +4,12 @@ containers/native.py) and the picture encoders (src/export.cc, bound
 here for export/image.py).
 
 Each is built from the sources in this package at first use, as its own
-library (`g++ -O3 -fPIC -shared -std=c++17`, -pthread for the parser;
-the encoders with the JAX package's Makefile flags and zlib, see
-`build_export`; _build.py), and loaded from the package's ignored build
-directory; a failed build raises.  Three parses are bound, one per
+library, with the JAX package's Makefile flags (`cxx_argv`; _build.py),
+and loaded from the package's ignored build directory; a failed build
+raises.  Where MINIVIDEO_TPU_TORCH_NATIVE_LIB names a library that holds
+all three sources (tools/asan_check_torch.sh builds one with
+AddressSanitizer), every loader loads that one and builds nothing; a
+path that does not exist raises.  Three parses are bound, one per
 staging layout of ops/recon.py: `parse_slice_native` (raster: the full
 FrameSyntax arrays, a drop-in for the Python parsers),
 `parse_slice_native_slab` (slot records) and `parse_slice_native_slab2`
@@ -36,30 +38,8 @@ _demux_lib = None
 _export_lib = None
 
 
-def _cmd(out, sources):
-    return ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
-            "-o", out, *sources]
-
-
-def build() -> str:
-    """Compile the parser if its build is missing; returns the .so path."""
-    return build_shared("mvt_entropy", [_SRC], _cmd)
-
-
-def build_demux() -> str:
-    """Compile the demuxer if its build is missing; returns the .so path."""
-    return build_shared(
-        "mvt_demux", [_DEMUX_SRC],
-        lambda out, sources: ["g++", "-O3", "-fPIC", "-shared",
-                              "-std=c++17", "-o", out, *sources])
-
-
-def load_demux():
-    """Load (building if needed) the native demuxer library."""
-    global _demux_lib
-    if _demux_lib is None:
-        _demux_lib = ctypes.CDLL(build_demux())
-    return _demux_lib
+# the one library that replaces all three builds (read at first load)
+OVERRIDE_ENV = "MINIVIDEO_TPU_TORCH_NATIVE_LIB"
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,17 +51,66 @@ def _march() -> list:
     return ["-march=native"] if r.returncode == 0 else []
 
 
-def _export_cmd(out, sources):
+def cxx_argv(out, sources, libs=()) -> list:
+    """The g++ argv that builds `sources` into the shared library `out`,
+    with the flags of minivideo_tpu/native/Makefile (-march=native where
+    g++ takes it: BMI2 SHLX matters for the CABAC engine's variable
+    shifts).  One argv for the three libraries and the lint
+    (tools/lint_torch.sh)."""
     return ["g++", "-O3", *_march(), "-fPIC", "-std=c++17", "-pthread",
             "-Wall", "-Wextra", "-Wno-unused-parameter", "-shared",
-            "-o", out, *sources, "-lz"]
+            "-o", out, *sources, *libs]
+
+
+def libraries() -> dict:
+    """Library name -> (sources, link libraries) of the three builds."""
+    return {"mvt_entropy": ([_SRC], []),
+            "mvt_demux": ([_DEMUX_SRC], []),
+            "mvt_export": ([_EXPORT_SRC], ["-lz"])}
+
+
+def _build(name) -> str:
+    sources, libs = libraries()[name]
+    return build_shared(name, sources,
+                        lambda out, srcs: cxx_argv(out, srcs, libs))
+
+
+def build() -> str:
+    """Compile the parser if its build is missing; returns the .so path."""
+    return _build("mvt_entropy")
+
+
+def build_demux() -> str:
+    """Compile the demuxer if its build is missing; returns the .so path."""
+    return _build("mvt_demux")
 
 
 def build_export() -> str:
-    """Compile the picture encoders if their build is missing, with the
-    JAX package's Makefile flags (-O3, -march=native where the compiler
-    takes it, -std=c++17 -pthread) and zlib; returns the .so path."""
-    return build_shared("mvt_export", [_EXPORT_SRC], _export_cmd)
+    """Compile the picture encoders (with zlib) if their build is
+    missing; returns the .so path."""
+    return _build("mvt_export")
+
+
+@functools.lru_cache(maxsize=None)
+def _override_lib(path):
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{OVERRIDE_ENV}={path}: no such library")
+    return ctypes.CDLL(path)
+
+
+def _open(build_fn):
+    """The override library where OVERRIDE_ENV is set (one CDLL for every
+    loader), else `build_fn()`'s library."""
+    path = os.environ.get(OVERRIDE_ENV)
+    return _override_lib(path) if path else ctypes.CDLL(build_fn())
+
+
+def load_demux():
+    """Load (building if needed) the native demuxer library."""
+    global _demux_lib
+    if _demux_lib is None:
+        _demux_lib = _open(build_demux)
+    return _demux_lib
 
 
 def load_export():
@@ -89,7 +118,7 @@ def load_export():
     global _export_lib
     if _export_lib is not None:
         return _export_lib
-    lib = ctypes.CDLL(build_export())
+    lib = _open(build_export)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32 = ctypes.c_int32
     lib.mv_yuv420_to_rgb.restype = None
@@ -197,7 +226,7 @@ def load():
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(build())
+    lib = _open(build)
     lib.mv_parse_slice.restype = ctypes.c_int64
     lib.mv_parse_slice.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,

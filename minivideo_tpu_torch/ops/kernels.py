@@ -29,12 +29,16 @@ def _nvcc():
     return path if os.path.exists(path) else "nvcc"
 
 
+def compile_argv(src, obj, defines=()) -> list:
+    """The nvcc argv that compiles one csrc/*.cu into the object `obj`
+    (the build's and the lint's, tools/lint_torch.sh)."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+            "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            *defines, "-c", "-o", obj, src]
+
+
 def _compile(defines):
-    def cmd(src, obj):
-        return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                *defines, "-c", "-o", obj, src]
-    return cmd
+    return lambda src, obj: compile_argv(src, obj, defines)
 
 
 def _link(out, objects):

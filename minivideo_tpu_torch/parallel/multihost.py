@@ -306,10 +306,11 @@ def run_multihost_dryrun(nprocs: int = 2, devices_per_proc: int = 2,
     """Start nprocs workers and wait for them; returns their combined
     output.  Raises on any worker failure or missing OK marker, after
     stopping every worker.  The CUDA library and the native parser are
-    built here once, before the workers start, so that they only load
+    built here once (the parser loaded, so that an override library
+    builds nothing), before the workers start, so that they only load
     them."""
     from .. import native
-    native.build()
+    native.load()
     if device is None or str(device).startswith("cuda"):
         from ..ops import kernels
         kernels.build()

@@ -356,7 +356,12 @@ def write_wav_extensible(pcm: np.ndarray, rate: int = 16000,
 
 
 def write_ps(annexb: bytes) -> bytes:
-    """Wrap H.264 access units in a minimal MPEG-2 program stream."""
+    """Wrap H.264 access units in a minimal MPEG-2 program stream, one PES
+    packet per access unit.  An access unit longer than a PES packet holds
+    (PES_packet_length is 16 bits; a 1080p picture) continues in further
+    packets without a PTS, as a muxer splits it.  (The fixture writer
+    tests/fixtures/containers.py has no such split; both give the same
+    bytes where every access unit fits one packet.)"""
     sps, pps, samples = annexb_to_avcc_samples(annexb)
     from ..containers.mp4 import avcc_to_annexb
     out = bytearray()
@@ -370,11 +375,16 @@ def write_ps(annexb: bytes) -> bytes:
         if i == 0:
             payload = b"".join(b"\x00\x00\x00\x01" + x
                                for x in sps + pps) + payload
-        ts = _encode_pts(pts)
+        tail = bytes([0x80, 0x80, 5]) + _encode_pts(pts)
         pts += 3600
-        tail = bytes([0x80, 0x80, 5]) + ts
-        ln = len(tail) + len(payload)
-        out += b"\x00\x00\x01\xe0" + ln.to_bytes(2, "big") + tail + payload
+        while True:
+            chunk = payload[:0xFFFF - len(tail)]
+            payload = payload[len(chunk):]
+            ln = len(tail) + len(chunk)
+            out += b"\x00\x00\x01\xe0" + ln.to_bytes(2, "big") + tail + chunk
+            if not payload:
+                break
+            tail = bytes([0x80, 0x00, 0])       # no PTS in a continuation
     out += b"\x00\x00\x01\xb9"
     return bytes(out)
 

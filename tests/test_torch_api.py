@@ -1,7 +1,8 @@
 """The port's file entry point and RGB output against the JAX package's,
 on the CPU: mv_open / mv_parse / mv_decode(device="cpu") from MP4,
-Matroska and MPEG-TS files equal the JAX package's mv_decode(engine="np")
-(the stream handed to the decoder, the planes and the crop); want_rgb
+Matroska, MPEG-TS, AVI, MPEG-PS and raw ES files equal the JAX package's
+mv_decode(engine="np") (the stream handed to the decoder, the planes and
+the crop); want_rgb
 equals the JAX package's device RGB (ops/color.py) at even and odd
 crops; yuv420_to_rgb_device equals the JAX function with tolerance 0;
 mv_get_infos has the JAX package's keys; without a card mv_decode
@@ -20,6 +21,9 @@ WRITERS = {
     "mp4": lambda s: C.write_mp4(s, 80, 48),
     "mkv": lambda s: C.write_mkv(s, 80, 48),
     "ts": C.write_ts,
+    "avi": lambda s: C.write_avi(s, 80, 48),
+    "mpg": C.write_ps,
+    "264": lambda s: s,
 }
 
 
