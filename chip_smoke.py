@@ -64,17 +64,48 @@ Phases, each printing one line with its seconds:
  10. files      - the same 1080p CAVLC and CABAC batches written into AVI,
                   MPEG-PS and raw ES files and decoded through mv_open,
                   mv_parse and mv_decode on the card with the native
-                  demuxer: the AVI and ES files give the JAX digests with
-                  one launch, the MPEG-PS files what the JAX package gives
-                  (PS_DIGESTS: no picture), the Python demuxers' tables
-                  equal the native ones, with demux, stream assembly and
-                  pictures/s; the 1080p stream with custom scaling lists
-                  (SCALING_LISTS) repeated to 16 pictures through
-                  decode_annexb gives SCALING_DIGESTS with one launch; the
-                  extractor (ES, PES) and the analyser (--json) on the AVI
-                  and MPEG-PS files give the JAX apps' outputs
-                  (APP_DIGESTS).
- 11. staging    - the 1080p CAVLC batch through the three staging layouts
+                  demuxer: each gives the JAX digests with one launch
+                  (the PS files too: the port's PS samples are access
+                  units, not PES packets, fault C2 of ROADMAP §C, where
+                  the JAX package gives no picture), the Python demuxers'
+                  tables equal the native ones, with demux, stream
+                  assembly and pictures/s; the 1080p stream with custom
+                  scaling lists (SCALING_LISTS) repeated to 16 pictures
+                  through decode_annexb gives SCALING_DIGESTS with one
+                  launch; the extractor (ES, PES) and the analyser
+                  (--json) on the AVI files give the JAX apps' outputs
+                  (APP_DIGESTS), on the PS files the port's pinned ones,
+                  whose ES and PES equal the AVI files'.
+ 11. x264_1080p - a real encoder's 1080p pictures: the three committed
+                  libx264 streams of testing/streams.X264_1080P (1920x1080
+                  with SPS cropping, QP 26, dense: CAVLC; CABAC with 8x8;
+                  CABAC with 8x8 in 4 slices; this host has no
+                  libavcodec), each picture repeated to a batch of 16.
+                  (a) decode_annexb in the device, records and raster
+                  staging layouts: libavcodec's digests of the cropped
+                  planes, one launch each; the kernel equals its plain
+                  version on the picture; the kernel's CUDA-event time on
+                  the batch and the host steps of staging it.  (b) the
+                  batch as MP4, Matroska, MPEG-TS, AVI, raw ES and two
+                  MPEG-PS files (access units split
+                  over 65,535-byte packets, and 2,048-byte packets that
+                  ignore them) through mv_open, mv_parse and mv_decode
+                  with the native demuxer: 16 pictures, libavcodec's
+                  digests, one launch each (the 4-slice ES too: the port
+                  counts an ES's pictures, not its slices), the native
+                  demux's seconds (host clock, median of 3), and of the
+                  one decode stream assembly and decode_annexb seconds
+                  and pictures/s; the PS files' Python tables equal the
+                  native ones, with their seconds.  (c) the extractor's
+                  ES of the 2,048-byte PS file carries the stream's SPS,
+                  PPS and slices and decodes to the same digests.  The
+                  CAVLC MP4's decode of (b) also asks for RGB (the
+                  cropped device RGB equals the numpy converter on the
+                  cropped planes).  Then batch_thumbnail YUV420 over the
+                  three MP4 files
+                  (1920x1080 files, the digests, one launch per bucket:
+                  2).
+ 12. staging    - the 1080p CAVLC batch through the three staging layouts
                   (MINIVIDEO_TPU_STAGING=device and =records through
                   decode_annexb; raster: the full native parse, pack_frames
                   and reconstruct_batch), each giving the JAX digests with
@@ -82,13 +113,13 @@ Phases, each printing one line with its seconds:
                   prep and kernel ms (CUDA events), pictures/s.  Then the
                   four staging constants of minivideo_tpu_torch/settings.py
                   measured on this host, and what "auto" picks.
- 12. parsers    - small CAVLC and CABAC streams (8x8, I_PCM, 3 slices)
+ 13. parsers    - small CAVLC and CABAC streams (8x8, I_PCM, 3 slices)
                   decoded under MINIVIDEO_TPU_NO_NATIVE=1 (the Python
                   parsers) equal the native parse's planes.
- 13. bad slices - streams with bad IDR pictures (testing/streams.py
+ 14. bad slices - streams with bad IDR pictures (testing/streams.py
                   BAD_STREAMS) give the JAX package's pictures, digests
                   pinned, as the reference drops the bad ones.
- 14. thumbnails - batch_thumbnail (parallel/batch.py) on the card over 19
+ 15. thumbnails - batch_thumbnail (parallel/batch.py) on the card over 19
                   files: the two 1080p CAVLC pictures alternating in 8
                   MP4, 4 Matroska and 4 MPEG-TS files, the CABAC MP4, a
                   4x3-MB clip and a 4x3-MB clip whose slice data is
@@ -108,7 +139,7 @@ Phases, each printing one line with its seconds:
                   16-picture MP4; mv_extract of its video track to ES
                   (SHA-256 pinned), decoded on the card to the JAX
                   digests.
- 15. engines    - the "wave" and "np" engines and the lane loop, which
+ 16. engines    - the "wave" and "np" engines and the lane loop, which
                   launch neither kernel (torch ops on the card; numpy on
                   the host): decode_annexb(engine="wave") of the 1080p
                   CAVLC and CABAC batches of 16 gives the JAX digests from
@@ -126,7 +157,7 @@ Phases, each printing one line with its seconds:
                   the BAD_STREAMS through wave and np give BAD_DIGESTS;
                   batch_thumbnail(engine="wave", YUV420) over the 16 CAVLC
                   1080p files gives the JAX digests.
- 16. scaleout   - the scale-out layer (parallel/sharding.py, halo.py,
+ 17. scaleout   - the scale-out layer (parallel/sharding.py, halo.py,
                   multihost.py) with meshes and process groups whose
                   members share the card: (a) batch_thumbnail over a 2x2
                   mesh of the card and the thumbnails phase's 19 files,
@@ -144,7 +175,7 @@ Phases, each printing one line with its seconds:
                   phase B's 1080p halo across both processes, every
                   picture of both phases equal to the JAX digests in both
                   processes, the backend and the seconds per phase.
- 17. bench      - (a) a real encoder's stream (testing/streams.X264_STREAM:
+ 18. bench      - (a) a real encoder's stream (testing/streams.X264_STREAM:
                   libx264, 128x96, 2 pictures, 4 slices, CABAC with 8x8;
                   this host has no libavcodec) decoded on the card: its
                   pictures equal libavcodec's digests, one launch; (b) the
@@ -597,7 +628,7 @@ TRACK_FIELDS = ("stream_type", "stream_fcc", "stream_codec", "width",
                 "frame_count", "frame_count_idr", "stream_size", "bitrate",
                 "nal_length_size", "length_prefixed", "parameter_sets",
                 "sample_type", "sample_size", "sample_offset", "sample_pts",
-                "sample_dts")
+                "sample_dts", "fragments")
 
 
 def same_tracks(a, b):
@@ -810,17 +841,18 @@ SCALING_DIGESTS = [
      "4ec9f41e8048e37322a10b8b4af9e53b43bae7920611d25613f33036a391a3f9",
      "2afec10f82dae37a1237ba680670604c04fcb8d14175c4fb3a6072aec74ffec0"],
 ]
-# the pictures the JAX package's mv_decode(picture_number=16) returns from
-# the MPEG-PS files of write_container_files: none.  A 1080p picture spans
-# several PES packets; both packages' PS demuxers take each packet as a
-# sample and only the packet that starts an IDR picture as a sync sample,
-# so every picture selected is cut to its first packet and fails to parse
-# (the AVI and ES files give JAX_DIGESTS / CABAC_DIGESTS)
-PS_DIGESTS = []
 # per file of write_container_files (the 16-picture 1080p batches), the
-# SHA-256 of what the JAX package's extractor writes (ES and --pes, by
-# file name) and of its analyser's --json output with the file's path
-# replaced by its name (app_outputs, run on the JAX apps on the CPU)
+# SHA-256 of what the extractor writes (ES and --pes, by file name) and
+# of the analyser's --json output with the file's path replaced by its
+# name (app_outputs).  The AVI entries are the JAX apps' (run on the CPU).
+# The MPEG-PS entries are the port's own, a difference by design (fault
+# C2, ROADMAP §C): the JAX package's PS demuxer makes each PES packet a
+# sample, so its extractor wrote a start code before every continuation
+# packet of a 1080p picture and its analyser listed the packets.  The
+# port's PS samples are access units, so the extractor's ES and PES are
+# byte for byte the AVI file's (the same digests; phase_files also
+# compares the two files' outputs in the run), and the analyser lists
+# 16 samples.
 APP_DIGESTS = {
     "cavlc.avi": {
         "es": {"cavlc_track0.264": "3fbd3bac4cbeda4f0d2e25a98199f6c8"
@@ -830,12 +862,12 @@ APP_DIGESTS = {
         "json": "fb40b80fa050f1ca27e7029971f15a64"
                 "e30a1a7e777adcb77e6483b0898c9c77"},
     "cavlc.mpg": {
-        "es": {"cavlc_track0.264": "4cf075837d36b4edc9d34c5b3db6097b"
-                                   "5958b9e31e1c4f9707f46950c0f44cbb"},
-        "pes": {"cavlc_track0.pes": "26529420cb2cb8e7ae27cddd5414a6a4"
-                                    "4689b7de8a97db1b9f5da2b45486fb78"},
-        "json": "22e414a217b808259849f993fc73d1ad"
-                "1a92e579dd56d0c856f860b5daf44a36"},
+        "es": {"cavlc_track0.264": "3fbd3bac4cbeda4f0d2e25a98199f6c8"
+                                   "23412ad658d0d33db1f245b633d9186f"},
+        "pes": {"cavlc_track0.pes": "78ae8d6374d807ffa34af5a5b33c3ca3"
+                                    "a98a8bc2e128ddf9dd6600800f9585a0"},
+        "json": "ae3dc3a63ed4273a501b1a79230c7df7"
+                "8823a21cf6fce49e5eb6b09d68e42b8f"},
     "cabac.avi": {
         "es": {"cabac_track0.264": "3ab283c07f17e0ccf9e97424ee2c02b5"
                                    "a13fa316cf7a54b5f658f5f56ccfe36c"},
@@ -844,12 +876,12 @@ APP_DIGESTS = {
         "json": "dd67e7abc57f8f18cd79b37aea379ba3"
                 "720dc13aa51d00e4b8dad631d21e490e"},
     "cabac.mpg": {
-        "es": {"cabac_track0.264": "3287c4ef6d19142767f04b1a95af9106"
-                                   "10ef41e79cd2946213ecb2fc8b8f81f3"},
-        "pes": {"cabac_track0.pes": "fdd6d3105173e4fe3444d19b1dbd1127"
-                                    "5c33848ebe0c2259178112c555305a84"},
-        "json": "5bbf97532c68a5ffa5e6bf117375cd07"
-                "6701c6149be48a13f399d4fbbc924bd9"},
+        "es": {"cabac_track0.264": "3ab283c07f17e0ccf9e97424ee2c02b5"
+                                   "a13fa316cf7a54b5f658f5f56ccfe36c"},
+        "pes": {"cabac_track0.pes": "20925127e45316b98c994d55e1b6278a"
+                                    "7366c721550e2b8e006157048f46264a"},
+        "json": "0eee86b28ded4f81785b51e8e239e2fc"
+                "953e66c20ec0290d6d3b7eccc1d3fdf4"},
 }
 
 
@@ -908,9 +940,7 @@ def phase_files(t0, dev, streams):
     AVI and MPEG-PS files."""
     import shutil
     import tempfile
-    from minivideo_tpu_torch.api import mv_close, mv_open, mv_parse
     from minivideo_tpu_torch.apps import analyser, extractor
-    from minivideo_tpu_torch.containers.native import native_demux
     from minivideo_tpu_torch.models.h264.decoder import decode_annexb
     from minivideo_tpu_torch.testing.h264enc import make_stream
     from minivideo_tpu_torch.testing.streams import repeat_pictures
@@ -920,38 +950,20 @@ def phase_files(t0, dev, streams):
         files = write_container_files(tmp, streams)
         for (entropy, ext), path in files.items():
             pinned = JAX_DIGESTS if entropy == "cavlc" else CABAC_DIGESTS
-            want = ([pinned[i % len(pinned)] for i in range(BATCH)]
-                    if ext != "mpg" else PS_DIGESTS)
+            want = [pinned[i % len(pinned)] for i in range(BATCH)]
             (pics, first), launches = decode_counted(
                 lambda: mv_decode_split(path))
             splits = [first] + [mv_decode_split(path)[1] for _ in range(2)]
             split = {k: statistics.median(sp[k] for sp in splits)
                      for k in splits[0]}
             # the native demuxer's tables against the Python demuxers'
-            native = mv_open(path)
-            try:
-                native_ok = native_demux(native)
-                with env(MINIVIDEO_TPU_NO_NATIVE="1"):
-                    python = mv_open(path)
-                    try:
-                        tables = (native_ok
-                                  and mv_parse(python, audio=False,
-                                               subs=False)
-                                  and same_tracks(native, python))
-                    finally:
-                        mv_close(python)
-            finally:
-                mv_close(native)
-            want_launches = 1 if want else 0
-            good = (digests(pics) == want and launches == want_launches
-                    and tables)
+            tables = python_demux_check(path)[0]
+            good = digests(pics) == want and launches == 1 and tables
             ok = ok and good
             log("files", t0, f"{entropy} {ext} ({os.path.getsize(path)} "
-                f"bytes): mv_decode {len(pics)} pictures (JAX package: "
-                f"{len(want)}), planes "
+                f"bytes): mv_decode {len(pics)} pictures, planes "
                 f"{'=' if digests(pics) == want else '!='} JAX digests, "
-                f"wave_kernel launches {launches} (want {want_launches}), "
-                f"Python demux "
+                f"wave_kernel launches {launches} (want 1), Python demux "
                 f"tables {'=' if tables else '!='} native; host clock, s, "
                 f"median of 3: demux (native) {split['demux']:.4f}, stream "
                 f"assembly {split['assembly']:.4f}, decode_annexb "
@@ -981,18 +993,267 @@ def phase_files(t0, dev, streams):
             + ("ok" if good else "FAILED"))
 
         # the extractor and analyser apps on the AVI and MPEG-PS files
+        outputs = {}
         for key in [k for k in files if k[1] != "264"]:
             name = os.path.basename(files[key])
             t = time.perf_counter()
-            got = app_outputs(extractor, analyser, files[key])
+            got = outputs[key] = app_outputs(extractor, analyser,
+                                             files[key])
             apps_s = time.perf_counter() - t
             good = got == APP_DIGESTS[name]
+            same_as_avi = ""
+            if key[1] == "mpg":
+                # C2: the PS file's ES and PES are the AVI file's
+                avi = outputs[key[0], "avi"]
+                equal = (got["es"] == avi["es"]
+                         and got["pes"] == avi["pes"])
+                good = good and equal
+                same_as_avi = (f", ES and PES {'=' if equal else '!='} "
+                               f"the AVI file's")
             ok = ok and good
             log("files", t0, f"{name}: extractor ES "
                 f"{sorted(got['es'])}, PES {sorted(got['pes'])}, analyser "
-                f"--json: {'=' if good else '!='} the JAX apps' pins "
-                f"({apps_s:.3f}s, host clock) "
+                f"--json: {'=' if got == APP_DIGESTS[name] else '!='} the "
+                f"pins ({'the JAX apps' if key[1] == 'avi' else 'the port'}"
+                f"'s){same_as_avi} ({apps_s:.3f}s, host clock) "
                 + ("ok" if good else f"FAILED: {got}"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
+# the x264_1080p phase's files of a batch: extension -> writer
+X264_WRITERS = {
+    "mp4": lambda C, s: C.write_mp4(s, 1920, 1080),
+    "mkv": lambda C, s: C.write_mkv(s, 1920, 1080),
+    "ts": lambda C, s: C.write_ts(s),
+    "avi": lambda C, s: C.write_avi(s, 1920, 1080),
+    "264": lambda C, s: s,
+    # access units split over 65,535-byte PES packets, and 2,048-byte
+    # packets that ignore access unit boundaries (as DVD muxers pack)
+    "mpg": lambda C, s: C.write_ps(s),
+    "2048.mpg": lambda C, s: C.write_ps(s, packet_size=2048),
+}
+
+
+def cropped_digests(pics):
+    return [[sha(a) for a in p.cropped()] for p in pics]
+
+
+def x264_staging(t0, dev, name, data, batch, want):
+    """decode_annexb of `batch` in the three staging layouts (libavcodec's
+    digests, one launch each), the kernel against its plain version on
+    the stream's one picture, and the kernel's time on the batch."""
+    from minivideo_tpu_torch.models.h264.decoder import (H264Decoder,
+                                                        decode_annexb,
+                                                        stage_annexb)
+    from minivideo_tpu_torch.ops import recon_fused
+    ok = True
+    for mode in ("device", "records", "raster"):
+        if mode == "raster":
+            def run():
+                (parsed, pk), = stage_annexb(batch, dev, staging_mode=mode)
+                return H264Decoder(device=dev).reconstruct_batch(parsed, pk)
+        else:
+            def run(mode=mode):
+                with env(MINIVIDEO_TPU_STAGING=mode):
+                    return decode_annexb(batch)
+        t = time.perf_counter()
+        pics, launches = decode_counted(run)
+        secs = time.perf_counter() - t
+        same = cropped_digests(pics) == want
+        good = (same and launches == 1 and len(pics) == BATCH
+                and pics[0].y.shape == (1088, 1920)
+                and pics[0].cropped()[0].shape == (1080, 1920))
+        ok = ok and good
+        log("x264_1080p", t0, f"{name} {mode} staging: {len(pics)} "
+            f"pictures in {secs:.3f}s (host clock, first run), cropped "
+            f"planes {'=' if same else '!='} libavcodec's digests, "
+            f"wave_kernel launches {launches} (want 1) "
+            + ("ok" if good else "FAILED"))
+    # the kernel against its plain version on the one picture
+    packed, arrs, _ = staged(data, dev)
+    err, _, plain_ms = compare_kernel(packed, arrs)
+    # the kernel on the batch of 16 dense real pictures, and the host
+    # steps of staging it (one run)
+    packed, arrs, steps = staged(batch, dev)
+    kernel_ms = cuda_ms(lambda: recon_fused.wave_kernel_cuda(
+        *arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb,
+        has8x8=packed.has8x8, haspcm=packed.haspcm, check=False),
+        TIMED_RUNS)
+    recon_fused.check_waits()
+    nbytes = wave_kernel_bytes(packed)
+    ok = ok and err == 0
+    log("x264_1080p", t0, f"{name}: wave_kernel vs plain wave loop on the "
+        f"picture (tolerance 0): max|err| {err} (plain {plain_ms:.1f} ms); "
+        f"wave_kernel on the batch of {BATCH} {kernel_ms:.3f} ms (CUDA "
+        f"events), bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({nbytes} bytes); staging the batch, host clock, s, one run: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in steps.items()) + " "
+        + ("ok" if err == 0 else "MISMATCH"))
+    return ok
+
+
+def native_demux_s(path):
+    """Host-clock seconds of mv_open and the native demux of `path`."""
+    from minivideo_tpu_torch.api import mv_close, mv_open
+    from minivideo_tpu_torch.containers.native import native_demux
+    t = time.perf_counter()
+    media = mv_open(path)
+    try:
+        if not native_demux(media):
+            raise RuntimeError(f"the native demuxer failed on {path}")
+        return time.perf_counter() - t
+    finally:
+        mv_close(media)
+
+
+def python_demux_check(path):
+    """(whether the Python demuxers' tables of `path` equal the native
+    demuxer's, fragment lists included; the Python demux's host-clock
+    seconds; the video track's sample count)."""
+    from minivideo_tpu_torch.api import mv_close, mv_open, mv_parse
+    from minivideo_tpu_torch.containers.native import native_demux
+    native = mv_open(path)
+    try:
+        native_ok = native_demux(native)
+        with env(MINIVIDEO_TPU_NO_NATIVE="1"):
+            python = mv_open(path)
+            try:
+                t = time.perf_counter()
+                python_ok = mv_parse(python, audio=False, subs=False)
+                secs = time.perf_counter() - t
+                equal = (native_ok and python_ok
+                         and same_tracks(native, python))
+            finally:
+                mv_close(python)
+    finally:
+        mv_close(native)
+    count = native.tracks_video[0].sample_count if native_ok else 0
+    return equal, secs, count
+
+
+def x264_files(t0, tmp, name, batch, want, rgb=False):
+    """The batch as a file of each container of X264_WRITERS through
+    mv_open / mv_parse / mv_decode with the native demuxer (the MP4 one
+    with want_rgb where `rgb`: the device RGB plane cropped equals the
+    numpy converter on the cropped planes); the PS files' Python tables;
+    the extractor on the 2,048-byte PS file."""
+    import numpy as np
+    from minivideo_tpu_torch.api import mv_close, mv_extract, mv_open, \
+        mv_parse
+    from minivideo_tpu_torch.export.image import yuv420_to_rgb_py
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.models.h264.nalu import split_annexb
+    from minivideo_tpu_torch.testing import containers as C
+    ok = True
+    files = {}
+    for ext, write in X264_WRITERS.items():
+        path = os.path.join(tmp, f"{name}.{ext}")
+        with open(path, "wb") as f:
+            f.write(write(C, batch))
+        files[ext] = path
+        # one decode for the digests; the native demux alone timed again
+        want_rgb = rgb and ext == "mp4"
+        (pics, split), launches = decode_counted(
+            lambda: mv_decode_split(path, want_rgb=want_rgb))
+        demux = statistics.median([split["demux"]] + [
+            native_demux_s(path) for _ in range(2)])
+        same = cropped_digests(pics) == want
+        good = same and launches == 1 and len(pics) == BATCH
+        extra = ""
+        if want_rgb:
+            rgb_same = all(np.array_equal(
+                p.cropped_rgb(), yuv420_to_rgb_py(*p.cropped()))
+                for p in pics)
+            good = (good and rgb_same and pics[0].cropped_rgb().shape
+                    == (1080, 1920, 3))
+            extra = (f"; want_rgb: cropped RGB "
+                     f"{'=' if rgb_same else '!='} the numpy converter on "
+                     f"the cropped planes")
+        if ext.endswith("mpg"):
+            equal, py_s, count = python_demux_check(path)
+            good = good and equal and count == BATCH
+            extra += (f"; Python demux tables {'=' if equal else '!='} "
+                     f"native ({count} samples, {py_s:.4f}s)")
+        ok = ok and good
+        log("x264_1080p", t0, f"{name} {ext} ({os.path.getsize(path)} "
+            f"bytes): mv_decode {len(pics)} pictures, cropped planes "
+            f"{'=' if same else '!='} libavcodec's digests, wave_kernel "
+            f"launches {launches} (want 1); host clock, s: demux (native, "
+            f"median of 3) {demux:.4f}; one run: stream assembly "
+            f"{split['assembly']:.4f}, decode_annexb "
+            f"{split['decode_annexb']:.4f}, {BATCH / split['total']:.2f} "
+            f"pictures/s{extra} " + ("ok" if good else "FAILED"))
+
+    # the extractor on the 2,048-byte PS file: whole pictures, no start
+    # code inserted inside one
+    m = mv_open(files["2048.mpg"])
+    try:
+        if not mv_parse(m, audio=False, subs=False):
+            raise RuntimeError(f"mv_parse failed on {files['2048.mpg']}")
+        es_path = mv_extract(m, m.tracks_video[0], tmp)
+    finally:
+        mv_close(m)
+    with open(es_path, "rb") as f:
+        es = f.read()
+    carried = [n for _, n in split_annexb(batch) if n[0] & 0x1F in (5, 7, 8)]
+    nals_same = [n for _, n in split_annexb(es)] == carried
+    pics, launches = decode_counted(lambda: decode_annexb(es))
+    same = cropped_digests(pics) == want
+    good = nals_same and same and launches == 1
+    ok = ok and good
+    log("x264_1080p", t0, f"{name}: extractor ES of the 2,048-byte PS "
+        f"file ({len(es)} bytes): NAL units {'=' if nals_same else '!='} "
+        f"the stream's SPS, PPS and slices; decode_annexb {len(pics)} "
+        f"pictures {'=' if same else '!='} libavcodec's digests, launches "
+        f"{launches} (want 1) " + ("ok" if good else "FAILED"))
+    return ok, files
+
+
+def phase_x264_1080p(t0, dev, streams):
+    """A real encoder's 1080p pictures on the card (see the docstring's
+    phase 11): the three committed libx264 streams of
+    testing/streams.X264_1080P, each picture repeated to a batch of 16,
+    in the three staging layouts, from every container, RGB and
+    batch_thumbnail's cropped YUV420."""
+    import shutil
+    import tempfile
+    from minivideo_tpu_torch.testing import streams as st
+    from minivideo_tpu_torch.testing.streams import repeat_pictures
+    ok = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_x264_")
+    try:
+        mp4s = []
+        for name, (fname, _, _, pinned) in st.X264_1080P.items():
+            data = st.x264_1080p(name)       # raises if missing or changed
+            batch = repeat_pictures(data, BATCH)
+            want = [pinned] * BATCH
+            log("x264_1080p", t0, f"{name}: {fname} ({len(data)} bytes, "
+                f"SHA-256 pinned), batch of {BATCH} ({len(batch)} bytes)")
+            ok = x264_staging(t0, dev, name, data, batch, want) and ok
+            good, files = x264_files(t0, tmp, name, batch, want,
+                                     rgb=name == "cavlc")
+            ok = ok and good
+            mp4s.append(files["mp4"])
+        # batch_thumbnail over the three MP4 files: 1920x1080 YUV420, in
+        # two buckets (batch.bucket_key: the CAVLC picture has no 8x8
+        # transform, the two CABAC ones have)
+        outdir = os.path.join(tmp, "thumbs")
+        (res, _, secs, _), launches = decode_counted(
+            lambda: batch_run(mp4s, outdir, "YUV420"))
+        outs = {os.path.splitext(os.path.basename(o))[0]: o
+                for o in res.outputs}
+        got = [[sha(a) for a in yuv_planes(outs[n], 1080, 1920)]
+               if n in outs else None for n in st.X264_1080P]
+        want = [v[3] for v in st.X264_1080P.values()]
+        good = got == want and not res.failed and launches == 2
+        ok = ok and good
+        log("x264_1080p", t0, f"batch_thumbnail YUV420 over the 3 MP4 "
+            f"files in {secs:.3f}s: 1920x1080 files "
+            f"{'=' if got == want else '!='} libavcodec's digests, "
+            f"wave_kernel launches {launches} (want 2, one per bucket) "
+            + ("ok" if good else "FAILED"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return ok
@@ -1514,7 +1775,7 @@ def peak_run(fn):
 
 def phase_engines(t0, dev, streams):
     """The wave, lane and np engines on the card (see the docstring's
-    phase 14).  Returns whether every check held."""
+    phase 16).  Returns whether every check held."""
     import shutil
     import tempfile
     import torch
@@ -1862,7 +2123,7 @@ def scaleout_multihost(t0, dev, streams):
 
 
 def phase_scaleout(t0, dev, streams):
-    """Scale-out on the card (see the docstring's phase 15).  Returns
+    """Scale-out on the card (see the docstring's phase 17).  Returns
     whether every check held."""
     ok = True
     for part in (scaleout_mesh, scaleout_halo, scaleout_multihost):
@@ -1902,7 +2163,7 @@ def bench_x264(t0):
 
 def phase_bench(t0, dev, streams):
     """The real-encoder stream and the port's bench on the card (see the
-    docstring's phase 16).  Returns whether every check held."""
+    docstring's phase 18).  Returns whether every check held."""
     import shutil
     import tempfile
     from minivideo_tpu_torch import bench
@@ -2191,14 +2452,15 @@ def main():
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
 
-    # ---- 8.-17. CABAC, containers, files, staging layouts, Python
-    # parsers, bad slices, thumbnails, the wave/lane/np engines,
-    # scale-out, the bench
+    # ---- 8.-18. CABAC, containers, files, a real encoder's 1080p
+    # pictures, staging layouts, Python parsers, bad slices, thumbnails,
+    # the wave/lane/np engines, scale-out, the bench
     # the 1080p batches of 16, and the two pictures alone
     streams = {"cavlc": stream, "cavlc2": data}
     for name, phase in (("cabac", phase_cabac),
                         ("containers", phase_containers),
                         ("files", phase_files),
+                        ("x264_1080p", phase_x264_1080p),
                         ("staging", phase_staging),
                         ("parsers", phase_parsers),
                         ("bad slices", phase_bad_slices),

@@ -13,7 +13,7 @@ import numpy as np
 
 from .codecs import Codec, Container, PictureRepartition, SampleType
 from .containers import demux
-from .containers.filter import idr_filtering
+from .containers.filter import select_pictures
 from .media import MediaFile, Track, open_media
 from . import trace
 
@@ -81,7 +81,7 @@ def mv_decode(media: MediaFile, picture_number: int = 1,
         raise UnsupportedStream(
             f"decoding {track.stream_codec.name} is not supported "
             f"(H.264 intra only, like the reference)")
-    selected = idr_filtering(track, picture_number, mode)
+    selected = select_pictures(media, track, picture_number, mode)
     if len(selected) == 0:
         return []
     # assemble a stream with parameter sets + selected IDR samples

@@ -10,11 +10,12 @@ the selected sample indices.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 
-from ..codecs import PictureRepartition, SampleType
+from ..codecs import Container, PictureRepartition, SampleType
 from ..media import Track
 from .. import trace
 
@@ -49,3 +50,44 @@ def idr_filtering(track: Track, picture_number: int,
     trace.t1("FILTER", "selected %d/%d IDRs (mode %s)", len(sel), n,
              mode.name)
     return sel
+
+
+def select_pictures(media, track: Track, picture_number: int,
+                    mode: PictureRepartition = PictureRepartition.UNFILTERED
+                    ) -> np.ndarray:
+    """Sample indices of up to `picture_number` IDR pictures of `track`.
+
+    A sample of a raw Annex-B file (Container.ES) is one NAL unit, so a
+    picture of several slices is several VIDEO_SYNC samples, which the
+    reference counts as pictures: picture_number=3 of a 4-slice stream
+    selects 3 slices of one picture.  Here, a difference by design, an
+    IDR slice whose first_mb_in_slice is not 0 continues the picture of
+    the IDR sample before it: idr_filtering runs over the pictures (each
+    sized by its slices), and each picture it selects brings all its
+    slices.  Every other container's sample is a whole picture, so
+    there this is idr_filtering.  The grouping lives here, not in
+    es_parse, because the ES tables equal the JAX package's attribute
+    for attribute (ROADMAP §C): it reads the byte after each IDR
+    sample's NAL header, where first_mb_in_slice begins."""
+    if media.container != Container.ES:
+        return idr_filtering(track, picture_number, mode)
+    fh = media.file_handle
+    pictures = []                 # [[sample index, ...]] per picture
+    for i in track.idr_indices():
+        fh.seek(int(track.sample_offset[i]) + 1)
+        head = fh.read(1)
+        # first_mb_in_slice is ue(v): 0 codes as a leading '1' bit
+        if pictures and head and not head[0] & 0x80:
+            pictures[-1].append(int(i))
+        else:
+            pictures.append([int(i)])
+    types = track.sample_type.copy()
+    sizes = track.sample_size.copy()
+    for p in pictures:
+        types[p[1:]] = int(SampleType.VIDEO)
+        sizes[p[0]] = track.sample_size[p].sum()
+    view = dataclasses.replace(track, sample_type=types, sample_size=sizes)
+    slices = {p[0]: p for p in pictures}
+    sel = [i for s in idr_filtering(view, picture_number, mode)
+           for i in slices[int(s)]]
+    return np.asarray(sel, dtype=np.int64)

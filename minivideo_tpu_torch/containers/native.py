@@ -102,8 +102,10 @@ def native_demux(media: MediaFile) -> bool:
                     psets.append(raw[p:p + ln2])
                     p += ln2
             frags = None
-            if media.container == Container.MPEG_TS and info[19] > 0:
-                # TS: scattered payload fragments (info[19] = count)
+            if (media.container in (Container.MPEG_TS, Container.MPEG_PS)
+                    and info[19] > 0):
+                # TS, and PS access units split over PES packets:
+                # scattered payload fragments (info[19] = count)
                 fo = np.zeros(int(info[19]), np.int64)
                 fs_ = np.zeros(int(info[19]), np.int64)
                 fc = np.zeros(n, np.int32)
@@ -277,10 +279,11 @@ def _build_track(container, info, types, sizes, offs, pts, dts,
         t.stream_size = int(sizes[0])
         t.frame_count = 1
     elif container == Container.MPEG_PS:
-        # 90 kHz -> ns exactly as containers/mpeg_ps.py:107-110
+        # 90 kHz -> ns and fragment lists exactly as containers/mpeg_ps.py
         pts_ns = np.where(pts >= 0, pts * 100000 // 9, -1).astype(np.int64)
         dts_ns = np.where(dts >= 0, dts * 100000 // 9, -1).astype(np.int64)
         t.set_samples(types, sizes, offs, pts_ns, dts_ns)
+        t.fragments = frags
         t.track_id = 0
         t.compute_stats()
     elif container == Container.ES:

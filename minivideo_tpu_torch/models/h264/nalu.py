@@ -45,20 +45,20 @@ class Nalu:
 def unescape_rbsp(data: bytes) -> bytes:
     """Remove emulation-prevention bytes: 00 00 03 -> 00 00 (spec 7.4.1.1).
 
-    Reference: nalu_clean_sample (h264_nalu.c:195-249).
+    Reference: nalu_clean_sample (h264_nalu.c:195-249).  The scan goes
+    from one 00 00 03 to the next with bytes.find, not byte by byte: a
+    dense 1080p slice holds thousands of them.
     """
-    if b"\x00\x00\x03" not in data:
+    i = data.find(b"\x00\x00\x03")
+    if i == -1:
         return data
-    out = bytearray()
-    i, n = 0, len(data)
-    while i < n:
-        if i + 2 < n and data[i] == 0 and data[i + 1] == 0 and data[i + 2] == 3:
-            out += data[i:i + 2]
-            i += 3
-        else:
-            out.append(data[i])
-            i += 1
-    return bytes(out)
+    parts, start = [], 0
+    while i != -1:
+        parts.append(data[start:i + 2])
+        start = i + 3
+        i = data.find(b"\x00\x00\x03", start)
+    parts.append(data[start:])
+    return b"".join(parts)
 
 
 def escape_rbsp(rbsp: bytes) -> bytes:

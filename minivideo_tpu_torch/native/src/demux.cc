@@ -58,15 +58,16 @@ struct NTrack {
   std::vector<int64_t> size, off, pts, dts;
   std::string psets;                       // packed [u16be len][bytes]...
   // per-sample fragment lists (TS: payload scattered across transport
-  // packets); flattened as (off,size) runs with per-sample counts.
-  // info[19] carries the total fragment count (0 = contiguous samples).
+  // packets; PS: H.264 access units split over PES packets); flattened
+  // as (off,size) runs with per-sample counts.  info[19] carries the
+  // total fragment count (0 = contiguous samples).
   std::vector<int64_t> frag_off, frag_size;
   std::vector<int32_t> frag_cnt;
   void finalize() {
     info[13] = static_cast<int64_t>(type.size());
     info[14] = static_cast<int64_t>(psets.size());
-    if (!frag_off.empty())              // info[19] is container-specific
-      info[19] = static_cast<int64_t>(frag_off.size());  // for TS only
+    if (!frag_off.empty())              // info[19] is container-specific:
+      info[19] = static_cast<int64_t>(frag_off.size());  // TS and PS
   }
 };
 
@@ -152,14 +153,23 @@ struct Buf {
     }
   }
   // find 00 00 01, scanning window-by-window with a 2-byte carry
+  // the bytes of the file resident from p on (p < n): the window
+  // re-centres on p only where p's first `need` bytes are not resident,
+  // so a scan that starts inside the window reads no file (a scan per
+  // PES packet of a 2,048-byte-packed PS re-read 1 MiB a packet)
+  size_t resident(size_t p, size_t need) const {
+    if (!wvalid || p < wbase || p + need > wbase + WIN)
+      ptr(p, std::min(WIN, n - p));
+    return std::min(wbase + WIN, n) - p;
+  }
   size_t find_startcode(size_t from) const {
     size_t pos = from;
     while (pos + 3 <= n) {
-      size_t span = std::min(WIN, n - pos);
-      const uint8_t* d = ptr(pos, span);
+      size_t span = resident(pos, 3);
+      const uint8_t* d = w.data() + (pos - wbase);
       for (size_t i = 0; i + 3 <= span; ++i)
         if (d[i] == 0 && d[i + 1] == 0 && d[i + 2] == 1) return pos + i;
-      if (span < 3 || pos + span >= n) break;
+      if (pos + span >= n) break;
       pos += span - 2;
     }
     return std::string::npos;
@@ -167,8 +177,8 @@ struct Buf {
   size_t find_byte(uint8_t b, size_t from) const {
     size_t pos = from;
     while (pos < n) {
-      size_t span = std::min(WIN, n - pos);
-      const uint8_t* d = ptr(pos, span);
+      size_t span = resident(pos, 1);
+      const uint8_t* d = w.data() + (pos - wbase);
       const void* hit = std::memchr(d, b, span);
       if (hit)
         return pos + (size_t)(reinterpret_cast<const uint8_t*>(hit) - d);
@@ -923,6 +933,121 @@ int64_t ps_sniff_audio(const Buf& b, const PsPackets& p) {
   return CO_MPEG_L2;
 }
 
+// H.264 NAL unit types that open a new access unit once the current one
+// holds a slice (H.264 §7.4.1.2.3): SEI, SPS, PPS, AUD, 14-18
+// (mpeg_ps.py _AU_OPENERS)
+bool au_opener(int t) { return (t >= 6 && t <= 9) || (t >= 14 && t <= 18); }
+
+// One H.264 stream's PES payloads split into access units, the samples
+// of `t` (mpeg_ps.py _h264_access_units; a difference by design from the
+// reference, which makes each packet a sample).  A byte-wise scan of the
+// payloads' concatenation, so a start code cut between two packets is
+// found.  A unit opens at an opener NAL or at a slice with
+// first_mb_in_slice 0 that follows a slice of the current unit, at its
+// start code, or one byte earlier where a zero byte precedes the start
+// code in the same packet.  Each sample takes the 90 kHz timestamps of
+// the packet holding its first byte, and is VIDEO_SYNC where it holds a
+// NAL of type 5; where any spans packets, every sample's runs go to the
+// fragment tables.
+void ps_h264_access_units(const Buf& b, const PsPackets& p, NTrack& t) {
+  std::vector<size_t> run;              // packet of each non-empty payload
+  std::vector<int64_t> es_start;        // stream position of its 1st byte
+  int64_t total = 0;
+  for (size_t k = 0; k < p.off.size(); ++k) {
+    if (p.size[k] <= 0) continue;
+    run.push_back(k);
+    es_start.push_back(total);
+    total += p.size[k];
+  }
+  if (!total) return;
+  auto run_of = [&](int64_t pos) {
+    return (size_t)(std::upper_bound(es_start.begin(), es_start.end(),
+                                     pos) - es_start.begin()) - 1;
+  };
+  std::vector<int64_t> starts{0};
+  std::vector<char> idr{0};
+  bool vcl = false;        // the current unit holds a slice
+  int zeros = 0;           // zero bytes just before this one, up to 3
+  int want = 0;            // 1: a NAL header next, 2: a first_mb byte
+  int ntype = 0;
+  int64_t sc = 0;          // stream position of that NAL's 00 00 01
+  bool zero_before = false;
+  auto open_unit = [&]() {
+    int64_t pos = sc;
+    if (zero_before && pos - 1 >= es_start[run_of(pos)]) --pos;
+    starts.push_back(pos);
+    idr.push_back(0);
+  };
+  auto slice = [&](bool first_mb_zero) {
+    if (vcl && first_mb_zero) open_unit();
+    vcl = true;
+    if (ntype == 5) idr.back() = 1;
+  };
+  for (size_t r = 0; r < run.size(); ++r) {
+    size_t k = run[r];
+    int64_t len = p.size[k];
+    const uint8_t* d = b.ptr((size_t)p.off[k], (size_t)len);
+    for (int64_t i = 0; i < len; ++i) {
+      if (want == 0 && zeros == 0) {      // a start code opens with a zero
+        const void* z = std::memchr(d + i, 0, (size_t)(len - i));
+        if (!z) break;
+        i = reinterpret_cast<const uint8_t*>(z) - d;
+      }
+      uint8_t c = d[i];
+      if (want == 1) {
+        ntype = c & 0x1F;
+        want = 0;
+        if (au_opener(ntype)) {
+          if (vcl) open_unit();
+          vcl = false;
+        } else if (ntype == 1 || ntype == 2 || ntype == 5) {
+          want = 2;
+        }
+      } else if (want == 2) {
+        slice((c & 0x80) != 0);   // ue(v) 0 codes as a leading '1'
+        want = 0;
+      } else if (c == 1 && zeros >= 2) {
+        sc = es_start[r] + i - 2;
+        zero_before = zeros >= 3;
+        want = 1;
+      }
+      zeros = c == 0 ? std::min(zeros + 1, 3) : 0;
+    }
+  }
+  if (want == 2) slice(false);   // a slice header cut by the stream's end
+  bool split = false;
+  std::vector<std::vector<std::pair<int64_t, int64_t>>> units;
+  for (size_t j = 0; j < starts.size(); ++j) {
+    int64_t s = starts[j];
+    int64_t e = j + 1 < starts.size() ? starts[j + 1] : total;
+    size_t r = run_of(s);
+    size_t first = run[r];
+    std::vector<std::pair<int64_t, int64_t>> au;
+    for (; r < run.size() && es_start[r] < e; ++r) {
+      int64_t a = std::max(s, es_start[r]);
+      int64_t z = std::min(e, es_start[r] + p.size[run[r]]);
+      au.push_back({p.off[run[r]] + a - es_start[r], z - a});
+    }
+    int64_t size = 0;
+    for (auto& [o, sz] : au) size += sz;
+    t.type.push_back(idr[j] ? SA_VIDEO_SYNC : SA_VIDEO);
+    t.off.push_back(au[0].first);
+    t.size.push_back(size);
+    t.pts.push_back(p.pts[first]);      // 90 kHz; wrapper converts to ns
+    t.dts.push_back(p.dts[first]);
+    split = split || au.size() > 1;
+    units.push_back(std::move(au));
+  }
+  if (!split) return;
+  for (auto& au : units) {
+    t.frag_cnt.push_back((int32_t)au.size());
+    for (auto& [o, sz] : au) {
+      t.frag_off.push_back(o);
+      t.frag_size.push_back(sz);
+    }
+  }
+}
+
 bool parse_ps(const Buf& b, Demux& dm) {
   // stream_id keyed PES loop (mpeg_ps.py; reference ps.c:308-485)
   std::vector<std::pair<int, PsPackets>> audio, video;   // ordered by first
@@ -978,25 +1103,14 @@ bool parse_ps(const Buf& b, Demux& dm) {
     int64_t codec = is_video
         ? ps_sniff_video(b, p)
         : (sid == 0xBD ? CO_AC3 : ps_sniff_audio(b, p));
-    t.off = p.off;
-    t.size = p.size;
-    t.pts = p.pts;                // 90 kHz; wrapper converts to ns
-    t.dts = p.dts;
-    t.type.assign(n, is_video ? SA_VIDEO : SA_AUDIO);
     if (is_video && codec == CO_H264) {
-      // mark IDR-bearing packets as sync (mpeg_ps.py:79-84)
-      for (size_t j = 0; j < n; ++j) {
-        size_t off = (size_t)p.off[j];
-        size_t len = std::min<size_t>((size_t)p.size[j], 4096);
-        for (size_t i = 0; i + 4 <= len; ++i) {
-          uint8_t b3 = b.u8(off + i + 3);
-          if (b.u8(off + i) == 0 && b.u8(off + i + 1) == 0 &&
-              b.u8(off + i + 2) == 1 && (b3 == 0x65 || b3 == 0x25)) {
-            t.type[j] = SA_VIDEO_SYNC;
-            break;
-          }
-        }
-      }
+      ps_h264_access_units(b, p, t);
+    } else {
+      t.off = p.off;
+      t.size = p.size;
+      t.pts = p.pts;              // 90 kHz; wrapper converts to ns
+      t.dts = p.dts;
+      t.type.assign(n, is_video ? SA_VIDEO : SA_AUDIO);
     }
     t.info[0] = is_video ? ST_VIDEO : ST_AUDIO;
     t.info[2] = codec;

@@ -616,7 +616,10 @@ int64_t png_chunk(uint8_t* out, const char* tag, const uint8_t* payload,
 // BFINAL), the last with Z_FINISH — so the concatenation of the bands'
 // output is ONE valid deflate stream (the pigz construction).  Each
 // band also returns the adler32 of its filtered bytes; the zlib
-// trailer is their adler32_combine.
+// trailer is their adler32_combine.  run() throws nothing: a failed
+// allocation in a band's thread sets `err`, and encode_png returns its
+// error code, where an exception leaving the thread would end the
+// process (a difference by design from the JAX package's copy).
 struct PngBand {
   const uint8_t* rgb;
   int w, r0, r1;
@@ -626,7 +629,15 @@ struct PngBand {
   int64_t filt_len = 0;
   bool err = false;
 
-  void run() {
+  void run() noexcept {
+    try {
+      encode();
+    } catch (...) {                              // std::bad_alloc
+      err = true;
+    }
+  }
+
+  void encode() {
     int64_t stride = (int64_t)w * 3;
     filt_len = (int64_t)(r1 - r0) * (stride + 1);
     std::vector<uint8_t> filt((size_t)filt_len);
@@ -642,13 +653,22 @@ struct PngBand {
     }
     adler = (uint32_t)adler32(adler32(0, nullptr, 0), filt.data(),
                               (uInt)filt_len);
-    z_stream zs;
+    // deflateEnd runs however this scope is left
+    struct Deflater {
+      z_stream zs;
+      bool live = false;
+      ~Deflater() {
+        if (live) deflateEnd(&zs);
+      }
+    } d;
+    z_stream& zs = d.zs;
     std::memset(&zs, 0, sizeof(zs));
     if (deflateInit2(&zs, level, Z_DEFLATED, -15, 8,
                      Z_DEFAULT_STRATEGY) != Z_OK) {
       err = true;
       return;
     }
+    d.live = true;
     z.resize((size_t)deflateBound(&zs, (uLong)filt_len) + 16);
     zs.next_in = filt.data();
     zs.avail_in = (uInt)filt_len;
@@ -657,7 +677,6 @@ struct PngBand {
     int rc = deflate(&zs, last ? Z_FINISH : Z_FULL_FLUSH);
     if (last ? rc != Z_STREAM_END : rc != Z_OK) err = true;
     z.resize(zs.total_out);
-    deflateEnd(&zs);
   }
 };
 
@@ -682,8 +701,14 @@ int64_t encode_png(const uint8_t* rgb, int h, int w, int level,
     bands[i].last = i == nb - 1;
   }
   std::vector<std::thread> ts;
-  for (int i = 1; i < nb; i++)
-    ts.emplace_back([&bands, i] { bands[i].run(); });
+  ts.reserve((size_t)nb);
+  for (int i = 1; i < nb; i++) {
+    try {
+      ts.emplace_back([&bands, i] { bands[i].run(); });
+    } catch (...) {               // no thread to be had: run it here
+      bands[i].run();
+    }
+  }
   bands[0].run();
   for (auto& t : ts) t.join();
 
@@ -810,7 +835,11 @@ int64_t mv_encode_jpeg(const uint8_t* y, const uint8_t* cb,
 int64_t mv_encode_png(const uint8_t* rgb, int32_t h, int32_t w,
                       int32_t level, int32_t threads, uint8_t* out,
                       int64_t cap) {
-  return encode_png(rgb, h, w, level, threads, out, cap);
+  try {
+    return encode_png(rgb, h, w, level, threads, out, cap);
+  } catch (...) {                 // the bands' table: no memory
+    return -3;
+  }
 }
 
 int64_t mv_encode_bmp(const uint8_t* rgb, int32_t h, int32_t w,

@@ -96,7 +96,7 @@ def _demux_groups(path: str, pictures: int, mode, device):
     """Demux one clip, select IDR pictures, return (decoder-with-
     paramsets, NALU groups, file_name)."""
     from ..api import mv_close, mv_open, mv_parse
-    from ..containers.filter import idr_filtering
+    from ..containers.filter import select_pictures
     from ..containers.mp4 import avcc_to_annexb
     from ..codecs import Codec, Container
     from ..models.h264.decoder import H264Decoder, group_idr_access_units
@@ -113,7 +113,7 @@ def _demux_groups(path: str, pictures: int, mode, device):
         if track.stream_codec not in (Codec.H264, Codec.UNKNOWN):
             raise UnsupportedStream(
                 f"{track.stream_codec.name} (H.264 intra only)")
-        selected = idr_filtering(track, pictures, mode)
+        selected = select_pictures(media, track, pictures, mode)
         if len(selected) == 0:
             raise ValueError("no IDR pictures found")
 

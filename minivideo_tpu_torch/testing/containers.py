@@ -355,38 +355,71 @@ def write_wav_extensible(pcm: np.ndarray, rate: int = 16000,
 # MPEG-PS
 
 
-def write_ps(annexb: bytes) -> bytes:
-    """Wrap H.264 access units in a minimal MPEG-2 program stream, one PES
-    packet per access unit.  An access unit longer than a PES packet holds
-    (PES_packet_length is 16 bits; a 1080p picture) continues in further
-    packets without a PTS, as a muxer splits it.  (The fixture writer
-    tests/fixtures/containers.py has no such split; both give the same
-    bytes where every access unit fits one packet.)"""
+def write_ps(annexb: bytes, packet_size: int | None = None) -> bytes:
+    """Wrap H.264 access units in a minimal MPEG-2 program stream.
+
+    packet_size=None: one PES packet per access unit.  An access unit
+    longer than a PES packet holds (PES_packet_length is 16 bits; a 1080p
+    picture) continues in further packets without a PTS, as a muxer
+    splits it.  (The fixture writer tests/fixtures/containers.py has no
+    such split; both give the same bytes where every access unit fits
+    one packet.)
+
+    packet_size=k: every PES packet is k bytes long, its header included
+    (the last may be shorter), and the packets ignore access unit
+    boundaries, as libavformat's DVD muxers pack 2,048-byte packs: a
+    packet may end inside a start code, or hold the tail of one access
+    unit and the head of the next.  A packet carries a PTS only where an
+    access unit starts in it, that of the first such unit."""
     sps, pps, samples = annexb_to_avcc_samples(annexb)
     from ..containers.mp4 import avcc_to_annexb
+    units = [avcc_to_annexb(s) for s in samples]
+    if units:
+        units[0] = b"".join(b"\x00\x00\x00\x01" + x
+                            for x in sps + pps) + units[0]
     out = bytearray()
     # pack header (MPEG-2): 00 00 01 BA + 10 bytes
     scr = bytes([0x44, 0x00, 0x04, 0x00, 0x04, 0x01])  # minimal SCR
     out += b"\x00\x00\x01\xba" + scr + bytes([0x01, 0x89, 0xc3]) \
         + bytes([0xf8])
-    pts = 0
-    for i, s in enumerate(samples):
-        payload = avcc_to_annexb(s)
-        if i == 0:
-            payload = b"".join(b"\x00\x00\x00\x01" + x
-                               for x in sps + pps) + payload
-        tail = bytes([0x80, 0x80, 5]) + _encode_pts(pts)
-        pts += 3600
-        while True:
-            chunk = payload[:0xFFFF - len(tail)]
-            payload = payload[len(chunk):]
-            ln = len(tail) + len(chunk)
-            out += b"\x00\x00\x01\xe0" + ln.to_bytes(2, "big") + tail + chunk
-            if not payload:
-                break
-            tail = bytes([0x80, 0x00, 0])       # no PTS in a continuation
+    if packet_size is None:
+        for i, payload in enumerate(units):
+            pts = i * 3600
+            while True:
+                chunk = payload[:0xFFFF - (8 if pts is not None else 3)]
+                payload = payload[len(chunk):]
+                out += pes_packet(chunk, pts)
+                if not payload:
+                    break
+                pts = None              # no PTS in a continuation
+    else:
+        es = b"".join(units)
+        starts, pos = [], 0          # (stream position, PTS) per unit
+        for i, u in enumerate(units):
+            starts.append((pos, i * 3600))
+            pos += len(u)
+        room = packet_size - 14      # a 14-byte header on every packet
+        for pos in range(0, len(es), room):
+            pts = next((t for p, t in starts if pos <= p < pos + room),
+                       None)
+            # without a PTS, 5 stuffing bytes keep the header's length
+            out += pes_packet(es[pos:pos + room], pts,
+                              stuffing=5 if pts is None else 0)
     out += b"\x00\x00\x01\xb9"
     return bytes(out)
+
+
+def pes_packet(payload: bytes, pts: int | None = None,
+               stuffing: int = 0) -> bytes:
+    """One MPEG-2 PES packet of video stream 0xE0 around `payload`: a PTS
+    (90 kHz ticks) unless pts is None, then `stuffing` 0xFF bytes in its
+    header."""
+    data = (_encode_pts(pts) if pts is not None else b"") \
+        + b"\xff" * stuffing
+    tail = bytes([0x80, 0x80 if pts is not None else 0x00, len(data)]) \
+        + data
+    ln = len(tail) + len(payload)
+    return b"\x00\x00\x01\xe0" + ln.to_bytes(2, "big") + tail + payload
 
 
 def _encode_pts(ts):

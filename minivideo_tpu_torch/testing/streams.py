@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 from ..models.h264.nalu import split_annexb
@@ -94,3 +95,45 @@ X264_LAVC_DIGESTS = [
      "bee13ccf809839ccd4d36c4f4b795bef76de535113b0b3dde593894951b75131",
      "24b9417c11619940ca69ec447aebf9a42018c6b633eae1dfb0958d7c27a94541"],
 ]
+
+# a real encoder's 1080p pictures, for hosts without libavcodec
+# (chip_smoke.py): one dense picture each (default noise mask, QP 26),
+# 1920x1080 with SPS cropping, from testing/x264.x264_stream(1920, 1080,
+# 1, 26, cabac, dct8, seed, slices) (the arguments of
+# tests/test_torch_x264.py's 1080p cases), with the SHA-256 of the stream
+# and of libavcodec's display-cropped (Y, Cb, Cr) (testing/x264.
+# lavc_decode): name -> (file, x264_stream's arguments after the
+# picture count and QP (cabac, dct8, seed, slices), stream SHA-256,
+# digests)
+X264_1080P = {
+    "cavlc": (
+        "x264_1080p_cavlc_s42.264", (0, 0, 42, 1),
+        "806b9020301b8a78df47d774ac611775a897b9b439ea3af1089c93065a3dccfe",
+        ["52a02496202c3bf80148edb1acc0b3394b221a37e5b8a1d68332b0b07602512a",
+         "2fac6765e44b59dbc00d44044a9a4d10858958523327c0b1663bd0512b81f87d",
+         "5c2cd42be1ea4c64e85e38feadf36735a6b5ad6fad1951e7062a086fda7380e4"]),
+    "cabac_8x8": (
+        "x264_1080p_cabac8x8_s43.264", (1, 1, 43, 1),
+        "75aa698372171bc050cba75eba0fce8e32ccc5564fb9ce97575de86db0b0bf77",
+        ["7438859c797f543e2c0e1cf37cadf0ac47af4eebcc4cb66e2f50060288633c40",
+         "8f0c7e7ade4b31317d44576227aafe63a0d67998f0b02534355dd92d811ff5d9",
+         "6ba00fbb2f08eb49e3aa3b4a117460ebb5877bb8c5006f5700a972ad0afa5221"]),
+    "cabac_8x8_4slices": (
+        "x264_1080p_cabac8x8_4slices_s44.264", (1, 1, 44, 4),
+        "6389328767ef9cb35b7b1bbb3b95f9dbe994ce214c07e27e9b925b3e85fe9e5c",
+        ["c0eb408a717acdfbdf7165365f700611458200f8b1287259bed608fe847af926",
+         "54b5df08b4e343756ef09666369a2480d22ae8249965b908fc2a5d4dcc61b8f8",
+         "548c0e7b9e9304398c95a3e0d86d640b219b290e5212511ed02bfcd66dcf1548"]),
+}
+
+
+def x264_1080p(name: str) -> bytes:
+    """The committed stream X264_1080P[name]; raises where the file is
+    missing or its SHA-256 is not the pinned one."""
+    fname, _, sha, _ = X264_1080P[name]
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           fname), "rb") as f:
+        data = f.read()
+    if hashlib.sha256(data).hexdigest() != sha:
+        raise RuntimeError(f"{fname}: SHA-256 is not the pinned one")
+    return data

@@ -1,13 +1,14 @@
 """libx264 streams and libavcodec's pictures of them: real-encoder input
 for the bench (bench.py) and the parity tests, from a second codebase.
 
-The repo's two C tools over libavcodec, `tools/x264_fixture.c` (libx264
-all-IDR streams: constant QP, no deblocking, in-band parameter sets) and
-`tools/h264_lavc_decode.c` (libavcodec's h264 decoder, raw planes out),
-are built with gcc at first use into the package's ignored `_build/`
-(_build.py).  Where the host lacks libavcodec's headers or libraries the
-build raises RuntimeError; callers that can do without a real encoder
-(the bench falls back to testing/h264enc2.py) catch exactly that.
+The repo's C tools over libavcodec, `tools/x264_fixture.c` (libx264
+all-IDR streams: constant QP, no deblocking, in-band parameter sets),
+`tools/h264_lavc_decode.c` (libavcodec's h264 decoder, raw planes out)
+and `tools/lavf_ps_mux.c` (libavformat's "vob" muxer), are built
+with gcc at first use into the package's ignored `_build/` (_build.py).
+Where the host lacks libavcodec's headers or libraries the build raises
+RuntimeError; callers that can do without a real encoder (the bench
+falls back to testing/h264enc2.py) catch exactly that.
 """
 
 from __future__ import annotations
@@ -24,13 +25,13 @@ TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "tools")
 
 
-def _tool(name: str) -> str:
+def _tool(name: str, libs=("-lavcodec", "-lavutil")) -> str:
     src = os.path.join(TOOLS, f"{name}.c")
     if not os.path.exists(src):
         raise RuntimeError(f"{src} is missing (not a checkout of the repo)")
     return build_shared(
         f"mvt_{name}", [src], lambda out, srcs: [
-            "gcc", "-O2", *srcs, "-o", out, "-lavcodec", "-lavutil"],
+            "gcc", "-O2", *srcs, "-o", out, *libs],
         binary=True)
 
 
@@ -42,6 +43,29 @@ def encoder() -> str:
 def decoder() -> str:
     """Path of the built libavcodec decoder (raises without libav)."""
     return _tool("h264_lavc_decode")
+
+
+def ps_muxer() -> str:
+    """Path of the built libavformat program-stream muxer
+    (tools/lavf_ps_mux.c; raises without libavformat)."""
+    return _tool("lavf_ps_mux", ("-lavformat", "-lavcodec", "-lavutil"))
+
+
+def lavf_ps(data: bytes) -> bytes:
+    """`data` (Annex-B) muxed into MPEG-PS by libavformat's "vob" muxer:
+    2,048-byte packs that ignore access unit boundaries."""
+    exe = ps_muxer()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.264")
+        dst = os.path.join(tmp, "out.mpg")
+        with open(src, "wb") as f:
+            f.write(data)
+        r = subprocess.run([exe, src, dst], capture_output=True,
+                           text=True, timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"lavf_ps_mux failed: {r.stderr[-300:]}")
+        with open(dst, "rb") as f:
+            return f.read()
 
 
 def x264_stream(w, h, frames, qp, cabac, dct8, seed, slices=1,

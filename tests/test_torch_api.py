@@ -117,6 +117,51 @@ def _jax_rgb_pictures(data):
     return pics
 
 
+def test_mv_decode_counts_multi_slice_pictures_in_raw_es(tmp_path):
+    """A raw ES sample is one NAL unit, so a picture of 3 slices is 3
+    IDR samples.  The JAX package counts them as pictures
+    (picture_number=2 gives one picture, cut to 2 of its 3 slices); the
+    port counts pictures (containers/filter.select_pictures, a
+    difference by design): k whole pictures for picture_number=k, from
+    mv_decode and batch_thumbnail, in every selection mode."""
+    from minivideo_tpu import api as jax_api
+    from minivideo_tpu_torch.api import mv_close, mv_decode, mv_open, mv_parse
+    from minivideo_tpu_torch.codecs import PictureFormat, PictureRepartition
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.parallel import batch_thumbnail
+    data = make_stream(width_mbs=4, height_mbs=6, n_pictures=3, seed=33,
+                       n_slices=3)
+    path = _write(tmp_path, "264", data)
+    want = decode_annexb(data, device="cpu")
+    m = jax_api.mv_open(path)
+    jax_api.mv_parse(m)
+    jax_pics = jax_api.mv_decode(m, picture_number=2, engine="np")
+    jax_api.mv_close(m)
+    assert len(jax_pics) == 1          # the reference's count of slices
+    m = mv_open(path)
+    try:
+        assert mv_parse(m)
+        for k in (1, 2, 3, 5):
+            got = mv_decode(m, picture_number=k, device="cpu")
+            assert len(got) == min(k, 3)
+            for a, b in zip(got, want):
+                assert_planes_equal((b.y, b.cb, b.cr), (a.y, a.cb, a.cr),
+                                    f"picture_number={k}")
+        for mode in PictureRepartition:
+            assert len(mv_decode(m, picture_number=2, mode=mode,
+                                 device="cpu")) == 2, mode
+    finally:
+        mv_close(m)
+    out = tmp_path / "thumbs"
+    res = batch_thumbnail([path], str(out), pictures_per_clip=3,
+                          fmt=PictureFormat.YUV420, device="cpu")
+    assert res.failed == 0 and res.frames == 3
+    for o, p in zip(sorted(res.outputs), want):
+        np.testing.assert_array_equal(
+            np.fromfile(o, np.uint8),
+            np.concatenate([a.ravel() for a in p.cropped()]))
+
+
 @pytest.mark.parametrize("crop", ["even", "odd"])
 def test_want_rgb_equals_jax_device_rgb(crop):
     """The port's RGB (converted on the decode's device, then cropped by

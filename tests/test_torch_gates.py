@@ -240,3 +240,37 @@ def test_app_outputs_are_the_jax_apps(ext, tmp_path):
         got = chip_smoke.app_outputs(extractor, analyser, path)
         want = chip_smoke.app_outputs(jax_extractor, jax_analyser, path)
         assert got == want and len(got["es"]) == len(got["pes"]) == 1
+
+
+PNG_UNDER_CAP = r"""
+import ctypes, resource, sys
+import numpy as np
+from minivideo_tpu_torch import native
+lib = native.load_export()                  # built before the cap
+h, w = 4096, 4096
+rgb = np.random.default_rng(7).integers(0, 256, (h, w, 3), np.uint8)
+cap = h * (w * 3 + 1) + (1 << 20)
+out = np.empty(cap, np.uint8)
+p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+vm = [int(x.split()[1]) for x in open("/proc/self/status")
+      if x.startswith("VmSize:")][0] * 1024
+# room for the bands' threads, not for their filter and deflate buffers
+# (4 bands of 12.6 MB each, twice)
+resource.setrlimit(resource.RLIMIT_AS, (vm + (40 << 20), -1))
+n = lib.mv_encode_png(p(rgb), h, w, 3, 4, p(out), cap)
+print("code", n)
+sys.exit(0 if n < 0 else 1)
+"""
+
+
+def test_png_bands_fail_without_ending_the_process():
+    """An allocation that fails inside a PNG band's thread (export.cc
+    PngBand, here under an address-space cap) makes mv_encode_png return
+    an error code, which encode_png_native raises as a failed picture,
+    in place of std::terminate ending the process."""
+    from minivideo_tpu_torch import native
+    native.load_export()
+    r = subprocess.run([sys.executable, "-c", PNG_UNDER_CAP], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, (r.returncode, r.stdout, r.stderr[-2000:])
+    assert re.search(r"code -[23]$", r.stdout.strip()), r.stdout

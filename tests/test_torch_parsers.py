@@ -173,3 +173,32 @@ def test_chip_smoke_cabac_digests_are_the_jax_package_s(monkeypatch):
     assert digests(decode_annexb(data, engine="fused")) == \
         chip_smoke.CABAC_DIGESTS
     assert len(chip_smoke.CABAC_DIGESTS) == chip_smoke.CABAC_KW["n_pictures"]
+
+
+@pytest.mark.parametrize("case", ["edges", "random", "x264_1080p"])
+def test_unescape_rbsp_equals_jax_package(case):
+    """The port's RBSP unescape (bytes.find from one 00 00 03 to the next)
+    gives the bytes of the JAX package's byte-by-byte loop: on runs of
+    zeros and threes that overlap and sit at either end, on random bytes
+    dense in 0 and 3, and on every NAL of a committed libx264 1080p
+    picture (a 1 MB slice with emulation-prevention bytes, which the
+    loop walks whole)."""
+    from minivideo_tpu.models.h264.nalu import unescape_rbsp as want
+    from minivideo_tpu_torch.models.h264.nalu import (split_annexb,
+                                                      unescape_rbsp)
+    if case == "edges":
+        units = [b"", b"\x03", b"\x00\x00", b"\x00\x00\x03",
+                 b"\x00\x00\x03\x00\x00\x03", b"\x00\x00\x00\x03\x03",
+                 b"\x00\x00\x03\x00\x00\x00\x03\x01", b"\x01\x00\x00\x03",
+                 b"\x00\x00\x03\x00", b"\x00\x03\x00\x00\x03\x03\x00\x00"]
+    elif case == "random":
+        rng = np.random.default_rng(13)
+        units = [rng.choice(np.array([0, 0, 0, 3, 1, 255], np.uint8),
+                            size=int(n)).tobytes()
+                 for n in rng.integers(0, 4000, size=40)]
+    else:
+        from minivideo_tpu_torch.testing import streams as st
+        units = [u for _, u in split_annexb(st.x264_1080p("cavlc"))]
+        assert max(len(u) for u in units if b"\x00\x00\x03" in u) > 10**6
+    for u in units:
+        assert unescape_rbsp(u) == want(u), u[:16]

@@ -116,16 +116,35 @@ def test_x264_multislice_jax_engine(x264):
 
 
 def test_x264_1080p_real_content(x264):
-    """1920x1080 (SPS cropping) at QP 26, CAVLC and CABAC with 8x8."""
-    for cabac, dct8, seed in ((0, 0, 42), (1, 1, 43)):
-        _check(x264, x264.x264_stream(1920, 1080, 1, 26, cabac, dct8,
-                                      seed), 1)
+    """1920x1080 (SPS cropping) at QP 26, CAVLC and CABAC with 8x8: the
+    committed streams of testing/streams.X264_1080P (their provenance:
+    test_committed_1080p_streams_are_x264_s)."""
+    from minivideo_tpu_torch.testing import streams
+    for name in ("cavlc", "cabac_8x8"):
+        _check(x264, streams.x264_1080p(name), 1)
 
 
 def test_x264_1080p_multislice(x264):
-    """1080p with 4 slices per picture, CABAC with 8x8."""
-    _check(x264, x264.x264_stream(1920, 1080, 1, 26, 1, 1, 44, slices=4),
-           1)
+    """1080p with 4 slices per picture, CABAC with 8x8 (committed)."""
+    from minivideo_tpu_torch.testing import streams
+    _check(x264, streams.x264_1080p("cabac_8x8_4slices"), 1)
+
+
+def test_committed_1080p_streams_are_x264_s(x264):
+    """The 1080p streams that chip_smoke.py decodes on the card (its host
+    has no libavcodec) are what x264_stream(1920, 1080, 1, 26, ...)
+    writes here, byte for byte, and libavcodec gives their pinned
+    digests."""
+    from minivideo_tpu_torch.testing import streams
+
+    for name, (_, (cabac, dct8, seed, slices), _, want) in \
+            streams.X264_1080P.items():
+        data = streams.x264_1080p(name)
+        assert x264.x264_stream(1920, 1080, 1, 26, cabac, dct8, seed,
+                                slices=slices) == data, name
+        pics = x264.lavc_decode(data)
+        assert [[hashlib.sha256(np.ascontiguousarray(a).tobytes())
+                 .hexdigest() for a in p] for p in pics] == [want], name
 
 
 def test_committed_x264_stream_is_libavcodec_s(x264):

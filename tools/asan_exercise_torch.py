@@ -4,7 +4,8 @@
 The port's counterpart of tools/asan_exercise.py.  It drives every
 native entry point of minivideo_tpu_torch (the entropy parser in the
 raster, records and device staging layouts, the device layout from 8
-threads at once, the demuxer over seven containers, every picture
+threads at once, the demuxer over seven containers (MPEG-PS also with
+pictures split over 65,535- and 2,048-byte PES packets), every picture
 encoder, the CABAC bin counter) over valid, truncated and byte-flipped
 inputs.  A bad input may end in the bindings' BitstreamError, a nonzero
 return code or a clean Python exception, never in a memory error.
@@ -176,10 +177,14 @@ def exercise_demux(rounds):
     from minivideo_tpu_torch.containers.native import native_demux
     from minivideo_tpu_torch.media import open_media
     from minivideo_tpu_torch.testing import containers as C
+    from minivideo_tpu_torch.testing.h264enc import make_stream
     from minivideo_tpu_torch.testing.h264enc2 import make_stream2
     rng = np.random.default_rng(1)
     es = make_stream2(width_mbs=4, height_mbs=3, n_pictures=2, seed=9,
                       mb_kinds=("i16",), density=0.3, entropy="cavlc")
+    # I_PCM pictures of 73.7 KB: each is split over two PES packets
+    big = make_stream(width_mbs=16, height_mbs=12, n_pictures=2, seed=79,
+                      mb_kinds=("pcm",))
     builders = {
         "mp4": lambda: C.write_mp4(es, 64, 48),
         "avi": lambda: C.write_avi(es, 64, 48),
@@ -188,6 +193,10 @@ def exercise_demux(rounds):
         "mkv": lambda: C.write_mkv(es, 64, 48),
         "ts": lambda: C.write_ts(es),
         "mpg": lambda: C.write_ps(es),
+        # access units split over PES packets: 65,535-byte packets, and
+        # 2,048-byte packets that ignore picture boundaries
+        "split.mpg": lambda: C.write_ps(big),
+        "2048.mpg": lambda: C.write_ps(big, packet_size=2048),
         "264": lambda: es,
     }
     counts = {"parsed": 0, "refused": 0, "errors": 0}
