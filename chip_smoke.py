@@ -144,15 +144,15 @@ Phases, each printing one line with its seconds:
                   the host): decode_annexb(engine="wave") of the 1080p
                   CAVLC and CABAC batches of 16 gives the JAX digests from
                   planes computed on the card with no wave-kernel launch,
-                  with s per batch, pictures/s (median of 3) and peak
+                  with s per batch, pictures/s (one run) and peak
                   memory (CAVLC), and the CUDA launches of a batch
                   (torch.profiler, CABAC); reconstruct_frames_lane (the
                   loop that the wave engine runs, so the CABAC trace
                   counts its launches) of the CAVLC raster batch gives
                   the JAX digests, with its seconds and peak memory;
                   build_residuals on the card equals it on the CPU, with
-                  its ms; decode_annexb(engine="np", max_pictures=2) gives
-                  the first two JAX digests, s per picture; on the kernel
+                  its ms; decode_annexb(engine="np", max_pictures=1) gives
+                  the first JAX digest, s per picture; on the kernel
                   phase's small streams wave (card) = fused (card) = np;
                   the BAD_STREAMS through wave and np give BAD_DIGESTS;
                   batch_thumbnail(engine="wave", YUV420) over the 16 CAVLC
@@ -164,14 +164,15 @@ Phases, each printing one line with its seconds:
                   YUV420 and PNG: the pinned digests, 4 wave-kernel
                   launches per bucket (8), the corrupt clip black and
                   failed, the stage times; (b) the halo in one process:
-                  the 1080p CAVLC and CABAC pairs (batch 2) over 2 strips
-                  give the first two JAX digests (the CABAC run traced
-                  with torch.profiler for its CUDA launches), and a 6x5-MB
-                  pair over 4 strips, a frame boundary on a strip
-                  boundary, gives the fused kernel's and np's planes;
-                  (c) run_multihost_dryrun with 2 processes on the card,
-                  2 mesh entries each, over 4 1080p CAVLC clip files:
-                  phase A 2 launches per process, the count reduce 4,
+                  the 1080p CABAC pair (batch 2) over 2 strips gives the
+                  first two JAX digests, and a 6x5-MB pair over 4
+                  strips, a frame boundary on a strip boundary, gives the
+                  fused kernel's and np's planes (traced with
+                  torch.profiler for its CUDA launches); (c)
+                  run_multihost_dryrun with 2 processes on the card, 2
+                  mesh entries each, over 4 1080p CAVLC clip files of one
+                  picture: phase A 2 launches per process, the count
+                  reduce 4,
                   phase B's 1080p halo across both processes, every
                   picture of both phases equal to the JAX digests in both
                   processes, the backend and the seconds per phase.
@@ -180,19 +181,26 @@ Phases, each printing one line with its seconds:
                   this host has no libavcodec) decoded on the card: its
                   pictures equal libavcodec's digests, one launch; (b) the
                   port's bench (minivideo_tpu_torch/bench.py, BENCH_ARGS)
-                  in-process on the 1080p streams with
-                  MINIVIDEO_TPU_PROFILE set to a scratch directory: its
-                  output check (both staging layouts and 8x8 bit-exact
-                  with the numpy oracle) and its checked pipeline runs
-                  (every batch of 4 streams equal to the first and to the
-                  oracle) must hold, the traces of the device stage and of
+                  in-process on bench.py's own workload, the five
+                  committed libx264 1080p streams of 8 pictures
+                  (testing/streams.BENCH_X264; "stream" must be "x264"),
+                  with MINIVIDEO_TPU_PROFILE set to a scratch directory:
+                  its output check (both staging layouts and 8x8
+                  bit-exact with the numpy oracle), its checked pipeline
+                  runs (every batch of 4 streams equal to the first and
+                  to the oracle) and its libavcodec check (every picture
+                  of those runs' first batches, and the 8 pictures of the
+                  4-slice stream decoded through decode_annexb, equal to
+                  the pinned digests: "lavc_check" "bit-exact") must
+                  hold, the traces of the device stage and of
                   a pipeline run must count one wave-kernel launch per
                   batch and, for the run, 7 copy calls per batch (host
                   side: the profiler drops some of the card's records in
                   a process this old; the card's kernel and copy records
                   are printed beside), and the launches counted must
-                  equal the bench's own; its JSON line's figures and the
-                  trace counts are printed.
+                  equal the bench's own; its JSON line's figures (with
+                  bits and CABAC Mbins a picture) and the trace counts
+                  are printed.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -1789,8 +1797,8 @@ def phase_engines(t0, dev, streams):
              "cabac": [CABAC_DIGESTS[i % 2] for i in range(BATCH)]}
 
     # ---- decode_annexb(engine="wave"): where its planes were computed;
-    # the CAVLC batch timed three times (each run's digests and peak
-    # memory checked), the CABAC batch's device work traced
+    # the CAVLC batch timed once (its digests and peak memory checked),
+    # the CABAC batch's device work traced
     spied = []
     real = tdec.reconstruct_frames_wave
 
@@ -1808,19 +1816,14 @@ def phase_engines(t0, dev, streams):
                 return tdec.decode_annexb(streams[name], engine="wave")
 
             if name == "cavlc":
-                runs, launches = decode_counted(
-                    lambda: [peak_run(wave) for _ in range(3)])
-                got = [digests(r[0]) for r in runs]
-                same = all(g == wants[name] for g in got)
-                n_pics = len(runs[0][0])
-                secs = [r[1] for r in runs]
-                e2e = statistics.median(secs)
-                msg = (f"runs of {[round(x, 3) for x in secs]} s, "
-                       f"{e2e:.3f} s per batch, {BATCH / e2e:.2f} "
-                       f"pictures/s (median of 3); peak memory "
-                       f"{max(r[2] for r in runs)} bytes above "
-                       f"{runs[0][3]}")
-                where_ok = spied == ["cuda"] * 3
+                (pics, secs, peak, base), launches = decode_counted(
+                    lambda: peak_run(wave))
+                same = digests(pics) == wants[name]
+                n_pics = len(pics)
+                msg = (f"{secs:.3f} s per batch, {BATCH / secs:.2f} "
+                       f"pictures/s (one run); peak memory {peak} bytes "
+                       f"above {base}")
+                where_ok = spied == ["cuda"]
             else:
                 t = time.time()
                 (pics, kinds), launches = decode_counted(
@@ -1878,13 +1881,14 @@ def phase_engines(t0, dev, streams):
 
     # ---- np: the numpy oracle on the host
     t = time.time()
-    pics = tdec.decode_annexb(streams["cavlc"], engine="np", max_pictures=2)
-    np_s = (time.time() - t) / 2
-    good = digests(pics) == JAX_DIGESTS and all(p.rgb is None for p in pics)
+    pics = tdec.decode_annexb(streams["cavlc"], engine="np", max_pictures=1)
+    np_s = time.time() - t
+    good = (digests(pics) == JAX_DIGESTS[:1]
+            and all(p.rgb is None for p in pics))
     ok = ok and good
-    log("engines", t0, f"decode_annexb(engine='np', max_pictures=2): "
-        f"{len(pics)} pictures, {'=' if good else '!='} the first two JAX "
-        f"digests; {np_s:.3f} s per 1080p picture on the host "
+    log("engines", t0, f"decode_annexb(engine='np', max_pictures=1): "
+        f"{len(pics)} picture, {'=' if good else '!='} the first JAX "
+        f"digest; {np_s:.3f} s per 1080p picture on the host "
         + ("ok" if good else "FAILED"))
 
     # ---- small feature streams: wave (card) = fused (card) = np
@@ -2009,65 +2013,56 @@ HALO_SMALL_KW = dict(width_mbs=6, height_mbs=5, n_pictures=2, seed=60,
 
 
 def scaleout_halo(t0, dev, streams):
-    """(b) The halo in one process: the 1080p CAVLC and CABAC pairs over
-    2 strips of the card (the JAX digests; the CABAC run traced), and a
-    small stream over 4 strips (the fused engine's and np's planes)."""
+    """(b) The halo in one process: the 1080p CABAC pair over 2 strips of
+    the card (the JAX digests; the 1080p CAVLC halo runs in (c)), and a
+    small stream over 4 strips (the fused engine's and np's planes; its
+    device work traced)."""
     import torch
     from minivideo_tpu_torch.models.h264.decoder import decode_annexb
     from minivideo_tpu_torch.ops.recon_wave import skew_tables
     from minivideo_tpu_torch.parallel.halo import reconstruct_frames_halo
     from minivideo_tpu_torch.testing.h264enc import make_stream
-    ok = True
-    for name, want in (("cavlc2", JAX_DIGESTS), ("cabac2", CABAC_DIGESTS)):
-        packed, _, _ = staged(streams[name], dev)
-        mesh = card_mesh(dev, 2, "lanes")
-
-        def run(packed=packed, mesh=mesh):
-            return reconstruct_frames_halo(packed, mesh)
-
-        t = time.time()
-        if name == "cabac2":
-            (planes, kinds), launches = decode_counted(
-                lambda: device_work(run))
-            what = f"traced; device activity (torch.profiler): {kinds}"
-        else:
-            planes, launches = decode_counted(run)
-            torch.cuda.synchronize()
-            what = "untraced"
-        secs = time.time() - t
-        on_card = all(p.device.type == "cuda" for p in planes)
-        same = plane_digests(planes) == want
-        good = same and on_card and launches == 0
-        ok = ok and good
-        lanes = packed.batch * skew_tables(packed.wmb, packed.hmb)["maxw"]
-        log("scaleout", t0, f"halo {name[:-1]} 1080p pair (batch 2, lane "
-            f"axis {lanes} over 2 strips of {dev}): planes "
-            f"{'=' if same else '!='} the JAX digests, wave_kernel "
-            f"launches {launches} (want 0); {secs:.3f} s ({what}) "
-            + ("ok" if good else "FAILED"))
+    packed, _, _ = staged(streams["cabac2"], dev)
+    t = time.time()
+    planes, launches = decode_counted(
+        lambda: reconstruct_frames_halo(packed, card_mesh(dev, 2, "lanes")))
+    torch.cuda.synchronize()
+    secs = time.time() - t
+    on_card = all(p.device.type == "cuda" for p in planes)
+    same = plane_digests(planes) == CABAC_DIGESTS
+    ok = same and on_card and launches == 0
+    lanes = packed.batch * skew_tables(packed.wmb, packed.hmb)["maxw"]
+    log("scaleout", t0, f"halo cabac 1080p pair (batch 2, lane axis {lanes} "
+        f"over 2 strips of {dev}): planes {'=' if same else '!='} the JAX "
+        f"digests, wave_kernel launches {launches} (want 0); {secs:.3f} s "
+        f"(untraced) " + ("ok" if ok else "FAILED"))
     data = make_stream(**HALO_SMALL_KW)
     packed, _, _ = staged(data, dev)
     t = time.time()
-    got = plane_digests(reconstruct_frames_halo(
-        packed, card_mesh(dev, 4, "lanes")))
+    (planes, kinds), launches = decode_counted(lambda: device_work(
+        lambda: reconstruct_frames_halo(packed, card_mesh(dev, 4, "lanes"))))
     secs = time.time() - t
+    got = plane_digests(planes)
     fused = digests(decode_annexb(data))
     np_ = digests(decode_annexb(data, engine="np"))
-    good = got == fused == np_
+    good = got == fused == np_ and launches == 0
     ok = ok and good
     log("scaleout", t0, f"halo {HALO_SMALL_KW['width_mbs']}x"
         f"{HALO_SMALL_KW['height_mbs']} MBs x2 (8 lanes over 4 strips, the "
         f"frame boundary on a strip boundary): planes "
-        f"{'=' if good else '!='} the fused kernel's and np's; {secs:.3f} s "
-        + ("ok" if good else "FAILED"))
+        f"{'=' if good else '!='} the fused kernel's and np's, wave_kernel "
+        f"launches {launches} (want 0); {secs:.3f} s (traced; device "
+        f"activity (torch.profiler): {kinds}) " + ("ok" if good else "FAILED"))
     return ok
 
 
 def scaleout_multihost(t0, dev, streams):
     """(c) run_multihost_dryrun: 2 processes on the card, 2 mesh entries
-    each, over 4 1080p CAVLC clip files; phase A 2 launches per process,
-    the count reduce 4, phase B's 1080p halo across both processes; the
-    saved planes give the JAX digests."""
+    each, over 4 1080p CAVLC clip files of the first picture (one
+    distinct picture: each worker runs the numpy oracle once per
+    distinct picture, seconds each); phase A 2 launches per process, the
+    count reduce 4, phase B's 1080p halo across both processes; the
+    saved planes give the JAX digest."""
     import re
     import shutil
     import tempfile
@@ -2079,7 +2074,7 @@ def scaleout_multihost(t0, dev, streams):
         for i in range(4):
             files.append(os.path.join(tmp, f"clip{i}.264"))
             with open(files[-1], "wb") as f:
-                f.write(picture_stream(streams["cavlc"], i % 2))
+                f.write(picture_stream(streams["cavlc"], 0))
         t = time.time()
         try:
             out = run_multihost_dryrun(nprocs=2, devices_per_proc=2,
@@ -2103,9 +2098,8 @@ def scaleout_multihost(t0, dev, streams):
             n_b = z["b_y"].shape[0]
             ok = (ok and n_b == 4
                   and pics("a", len(z["a_clips"]))
-                  == [JAX_DIGESTS[c % 2] for c in z["a_clips"]]
-                  and pics("b", n_b) == [JAX_DIGESTS[i % 2]
-                                         for i in range(n_b)])
+                  == [JAX_DIGESTS[0]] * len(z["a_clips"])
+                  and pics("b", n_b) == [JAX_DIGESTS[0]] * n_b)
         counts = re.findall(r"wave_kernel launches (\d+)", out)
         backends = re.findall(r"backend (\w+)", out)
         ok = (ok and counts == ["2", "2"] and len(backends) == 2
@@ -2185,7 +2179,12 @@ def phase_bench(t0, dev, streams):
     it, tr = res["iters"], res["trace"]
     dtr, ptr = tr["device_stage"], tr["pipeline"]
     checks = {
+        "bench.py's libx264 streams": res["stream"] == "x264",
         "output check": res["output_check"] == "bit-exact",
+        "libavcodec check": res["lavc_check"] == "bit-exact",
+        # batch 0 of 4 checked runs, the 4-slice stream's 8 in 1 launch
+        "libavcodec check's pictures": res["lavc_checked"] == {
+            "pictures": 4 * res["batch"] + 8, "decode_annexb_launches": 1},
         "4 checked pipeline runs": res["checked_runs"] == 4,
         "device-stage trace: 1 launch a batch":
             dtr["wave_kernel_launches"] == it,
@@ -2210,7 +2209,11 @@ def phase_bench(t0, dev, streams):
         f"{res['device_fps_records_staging']:.1f}; 8x8 "
         f"{x8['device_fps']:.1f}, {x8['device_fps_records_staging']:.1f}); "
         f"entropy fps CAVLC {res['entropy_cavlc_fps']:.1f} CABAC "
-        f"{res['entropy_cabac_fps']:.1f}; thumbnails/s "
+        f"{res['entropy_cabac_fps']:.1f}; bits a picture CAVLC "
+        f"{res['bits_per_frame_cavlc']} CABAC {res['bits_per_frame_cabac']}; "
+        f"Mbins a picture CABAC {res['bins_per_frame_cabac'] / 1e6:.3f} "
+        f"(8x8 {x8['bins_per_frame_cabac'] / 1e6:.3f}); libavcodec check "
+        f"{res['lavc_check']} {res['lavc_checked']}; thumbnails/s "
         f"{res['thumbnails_per_s']}; 4-slice latency "
         f"{res['slice_parallel']}; ring {res['ring']}")
     for name, t_ in (("device stage", dtr), ("pipeline run", ptr)):

@@ -11,14 +11,18 @@ stream; `value_cabac` the same for CABAC, `high_profile_8x8` both again
 for the 8x8-transform streams.
 
 Streams: libx264 all-IDR pictures, 8 distinct per stream at QP 26 and
-noise mask 7 (tools/x264_fixture.c, built into the package's `_build/`
-by testing/x264.py), one CAVLC and one CABAC stream, their 8x8-transform
-variants and a 4-slice CABAC stream; cached under the repo's ignored
-`.bench_cache/`.  Where libavcodec is missing they come from
-testing/h264enc2.make_stream2 with bench.py's fallback parameters (two
-pictures, seed 42, I16x16/I4x4, density 0.25), which here keep the
-variant's slices and 8x8 transform (bench.py's fallback drops both).
-The JSON says which ("stream").
+noise mask 7 (tools/x264_fixture.c), one CAVLC and one CABAC stream,
+their 8x8-transform variants and a 4-slice CABAC stream.  At 1920x1088
+they are bench.py's own streams, committed under testing/ with their
+SHA-256 and libavcodec's digest of every picture pinned
+(testing/streams.BENCH_X264): read on any host, never encoded, and a
+missing or altered file raises.  At other sizes they are encoded (the
+tools built into the package's `_build/` by testing/x264.py) and cached
+under the repo's ignored `.bench_cache/`, or, where libavcodec is
+missing, come from testing/h264enc2.make_stream2 with bench.py's
+fallback parameters (two pictures, seed 42, I16x16/I4x4, density 0.25),
+which here keep the variant's slices and 8x8 transform (bench.py's
+fallback drops both).  The JSON says which ("stream").
 
 Host stage: each slice of a batch is one task of a thread pool (the
 native parser releases the GIL) writing into slab staging of the layout
@@ -42,7 +46,11 @@ of the device stage (and of the 8x8 variant) read back and held bit-exact
 to the numpy oracle (decode_annexb(engine="np")); one untimed run of the
 pipeline per stream whose every batch must equal the first and whose
 first picture must equal the oracle's; every wait of the kernel checked
-(check_waits) once per run.  A mismatch exits with code 1.
+(check_waits) once per run.  Where libavcodec's digests are pinned (the
+1080p streams) every picture of the checked runs' first batch must equal
+its picture's digest, and the 4-slice stream is decoded once through
+decode_annexb on the device and its 8 pictures held to theirs
+("lavc_check").  A mismatch exits with code 1.
 
 Trace: with MINIVIDEO_TPU_PROFILE=<dir>, profiling.device_trace wraps
 the timed device stage and one extra pipeline run; the bench reads the
@@ -89,6 +97,7 @@ from .profiling import device_trace
 from .settings import staging_mode
 from .testing import x264
 from .testing.h264enc2 import make_stream2
+from .testing.streams import BENCH_X264, bench_x264, picture_sha256
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CACHE = os.path.join(REPO, ".bench_cache")
@@ -153,9 +162,12 @@ def _synthetic(entropy, wmb, hmb, slices, dct8):
 
 def get_streams(names, w, h):
     """({name: Annex-B bytes} for names of STREAMS at w x h, the source:
-    "x264" or "synthetic").  Cached under CACHE by size, name and
-    source; the synthetic streams of large pictures are encoded in
-    processes at once."""
+    "x264" or "synthetic").  At SIZE the committed streams of
+    testing/streams.BENCH_X264 (raises where one is missing or altered);
+    at other sizes cached under CACHE by size, name and source, the
+    synthetic streams of large pictures encoded in processes at once."""
+    if (w, h) == SIZE:
+        return {name: bench_x264(name) for name in names}, "x264"
     try:
         x264.encoder()
         source = "x264"
@@ -214,6 +226,22 @@ def prep_pictures(data):
             pic.append((n, sh))
         pictures.append(pic)
     return pictures, sps, pps
+
+
+def lavc_digests(names, w, h):
+    """{name: libavcodec's picture_sha256 of each picture} where they
+    are pinned (the committed streams at SIZE), else {}."""
+    return ({name: BENCH_X264[name][3] for name in names}
+            if (w, h) == SIZE else {})
+
+
+def lavc_check(pictures, digests, what):
+    """Raise CheckFailed unless picture i of `pictures` ((Y, Cb, Cr)
+    each) has digest i % len(digests)."""
+    for i, planes in enumerate(pictures):
+        if picture_sha256(*planes) != digests[i % len(digests)]:
+            raise CheckFailed(f"{what} picture {i} differs from "
+                              f"libavcodec's")
 
 
 def oracle_planes(data):
@@ -682,9 +710,12 @@ class Bench:
             fps.append(self.batch * self.iters / dt)
         return fps
 
-    def checked_run(self, prep, oracle, what):
+    def checked_run(self, prep, oracle, what, digests=None):
         """One untimed run whose every batch must equal the first batch,
-        and whose pictures of picture 0 must equal the oracle's."""
+        and whose pictures of picture 0 must equal the oracle's; with
+        `digests` (libavcodec's, one a distinct picture), every picture
+        of the first batch must equal its own.  Returns the count of
+        pictures held to `digests`."""
         n = len(prep[0])
         first = []
 
@@ -694,6 +725,10 @@ class Bench:
                 for r in range(0, self.batch, n):
                     output_check([p[r] for p in planes], oracle,
                                  f"{what}, pipeline batch 0 picture {r}")
+                if digests:
+                    lavc_check([[p[r] for p in planes]
+                                for r in range(self.batch)], digests,
+                               f"{what}, pipeline batch 0")
             elif not all(np.array_equal(a, b)
                          for a, b in zip(first, planes)):
                 raise CheckFailed(f"{what}: pipeline batch {i} differs "
@@ -701,6 +736,7 @@ class Bench:
 
         self.overlapped(prep, check)
         self.check_waits()
+        return self.batch if digests else 0
 
     # -- the sections ------------------------------------------------------
 
@@ -721,6 +757,7 @@ class Bench:
 
         # ---- streams, oracles, host stage ----------------------------------
         streams, source = get_streams(list(STREAMS), w, h)
+        pins = lavc_digests(list(STREAMS), w, h)
         preps = {k: prep_pictures(d) for k, d in streams.items()}
         t0 = time.perf_counter()
         oracles = _spawned(oracle_planes, {
@@ -766,6 +803,24 @@ class Bench:
             f"{t_seq * 1e3:.2f} ms/picture sequential, {t_par * 1e3:.2f} "
             f"ms fanned")
 
+        # ---- the 4-slice stream through decode_annexb vs libavcodec ---------
+        lavc = {"pictures": 0}
+        if "cabac_s4" in pins:
+            n0 = rf.wave_kernel_cuda.launches
+            pics = decode_annexb(streams["cabac_s4"], device=self.device)
+            n = rf.wave_kernel_cuda.launches - n0
+            self.launched += n
+            if len(pics) != len(pins["cabac_s4"]):
+                raise CheckFailed(f"cabac_s4, decode_annexb: {len(pics)} "
+                                  f"pictures, libavcodec "
+                                  f"{len(pins['cabac_s4'])}")
+            lavc_check([(p.y, p.cb, p.cr) for p in pics], pins["cabac_s4"],
+                       "cabac_s4, decode_annexb")
+            lavc.update(pictures=len(pics), decode_annexb_launches=n)
+            log(f"bench: cabac_s4 through decode_annexb: {len(pics)} "
+                f"pictures = libavcodec's digests, {n} wave_kernel "
+                f"launches")
+
         # ---- device stage on resident staging, output check ----------------
         def variant(k):
             prep = preps[k]
@@ -793,7 +848,8 @@ class Bench:
         checked = 0
         e2e = {}
         for k in ("cavlc", "cabac"):
-            self.checked_run(preps[k], oracles[k], k)
+            lavc["pictures"] += self.checked_run(preps[k], oracles[k], k,
+                                                 pins.get(k))
             checked += 1
             e2e[k] = self.pipeline_runs(preps[k])
             log(f"bench: overlapped [{k}]: {B * it} pictures/run, median "
@@ -817,7 +873,8 @@ class Bench:
         del fns8
         for e in ("cavlc", "cabac"):
             k = f"{e}_8x8"
-            self.checked_run(preps[k], oracles[k], k)
+            lavc["pictures"] += self.checked_run(preps[k], oracles[k], k,
+                                                 pins.get(k))
             checked += 1
             runs = self.pipeline_runs(preps[k])
             x8["e2e_median"][e] = statistics.median(runs)
@@ -900,6 +957,8 @@ class Bench:
             "slice_parallel": slice_stats,
             "output_check": "bit-exact",
             "checked_runs": checked,
+            "lavc_check": "bit-exact" if pins else None,
+            "lavc_checked": lavc,
             "host_cores": self.ncpu,
             "threads": threads,
             "staging": self.mode,

@@ -5,7 +5,11 @@ from __future__ import annotations
 import hashlib
 import os
 
+import numpy as np
+
 from ..models.h264.nalu import split_annexb
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 # the 1080p workload: make_stream(**STREAM_1080P) from testing.h264enc, a
 # High-profile CAVLC stream of two IDR pictures (I16x16/I4x4/I8x8 and
@@ -83,8 +87,7 @@ def bad_stream(name: str, make_stream) -> bytes:
 # tests/test_golden_x264.py::test_x264_multislice_cabac_8x8), with the
 # SHA-256 of the stream and of libavcodec's (Y, Cb, Cr) of each picture
 # (tools/h264_lavc_decode.c)
-X264_STREAM = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "x264_128x96_cabac8x8_s4.264")
+X264_STREAM = os.path.join(HERE, "x264_128x96_cabac8x8_s4.264")
 X264_SHA256 = ("e77420ec2dc918d3b0dc73becb411e01"
                "854055eb642e90abfe84681216f20a2a")
 X264_LAVC_DIGESTS = [
@@ -127,13 +130,105 @@ X264_1080P = {
 }
 
 
-def x264_1080p(name: str) -> bytes:
-    """The committed stream X264_1080P[name]; raises where the file is
-    missing or its SHA-256 is not the pinned one."""
-    fname, _, sha, _ = X264_1080P[name]
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           fname), "rb") as f:
+def read_pinned(fname: str, sha: str) -> bytes:
+    """The committed file `fname` of this directory; raises where it is
+    missing or its SHA-256 is not `sha`."""
+    path = os.path.join(HERE, fname)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{path} is missing")
+    with open(path, "rb") as f:
         data = f.read()
     if hashlib.sha256(data).hexdigest() != sha:
         raise RuntimeError(f"{fname}: SHA-256 is not the pinned one")
     return data
+
+
+def x264_1080p(name: str) -> bytes:
+    """The committed stream X264_1080P[name]; raises where the file is
+    missing or its SHA-256 is not the pinned one."""
+    fname, _, sha, _ = X264_1080P[name]
+    return read_pinned(fname, sha)
+
+
+def picture_sha256(y, cb, cr) -> str:
+    """One SHA-256 over a picture's Y, Cb and Cr planes, in that order."""
+    h = hashlib.sha256()
+    for plane in (y, cb, cr):
+        h.update(np.ascontiguousarray(plane).tobytes())
+    return h.hexdigest()
+
+
+# bench.py's own workload (its get_stream at the repo root): five libx264
+# streams of 8 distinct IDR pictures at 1920x1088 (no cropping), QP 26,
+# seed 42, noise mask 7 - CAVLC, CABAC, both with the 8x8 transform, and
+# CABAC in 4 slices a picture - made by testing/x264.x264_stream(*args)
+# with libx264 0.164.3095 (through libavcodec 59.37.100, FFmpeg 5.1),
+# with the SHA-256 of the stream and picture_sha256 of each of
+# libavcodec's 8 pictures (testing/x264.lavc_decode, the same
+# libavcodec): name -> (file, x264_stream's arguments, stream SHA-256,
+# digests).  To make them again: write x264_stream(*args) to the file and
+# pin the new SHA-256 and lavc_decode's digests here.
+BENCH_X264 = {
+    "cavlc": (
+        "bench_x264_1080p_cavlc.264", (1920, 1088, 8, 26, 0, 0, 42, 1, 7),
+        "d6a3de7bac945a577c95126b85f3a42c0414d60350c49861d3aaf09de84d5862",
+        ["9cc4b29615a2827b7bfc2ec2c18ac4eae1b301ff0a2380cfb66cdbde7ca1bf05",
+         "b0187b1572f3bf9bb7ad976f5873814af447f0cfab3e1226c7f09e6b7b0dd77d",
+         "afef1ade3818cf74e7159748031b1b22603daf8c46f331cedc42d8597fb4c632",
+         "036fb1d6617dd37bf339040e681ae30ba3ff61bc9f29a0ba69e7ce6208317cc9",
+         "448a03e3485e4feef4ddf94b6642565410d863d07ba9dbb9e3f4bedcd8d44430",
+         "cd7b9b1d96c59c8a8974f65eece1ce4c6fe31fece8799b33b5a4641e913f9cc9",
+         "ea7c353671bf905c417a78452bdcad93beb0650e5023b2c629927f974109dff4",
+         "3ca578d11c8a960955085527d7795d0ddc220c3b4a110010665097a59492cf53"]),
+    "cabac": (
+        "bench_x264_1080p_cabac.264", (1920, 1088, 8, 26, 1, 0, 42, 1, 7),
+        "59ee5cf11cd90022a564c2af80927329c158c7f2bc919e6712eff594dcf86380",
+        ["17ef560823bbf75464677e3cd4d35720e3ec15d1475f7ee46ae7456aa281352d",
+         "3e3e1b6339bf4a38d39bb8aa16b8204b6dab745efefd13681d914e7de72dc754",
+         "0228ced8a01b364898297ac32aaf52b7e0114e596fa60a5e7808ee3d4e3ed7db",
+         "bdaf130397ac3e1dada28b8e4d1aa3ae18d0f0e3562cb8aab591d73787a27cde",
+         "5db159551bf192e621048d324232d740b2d595e59584cf0de6104c7257c3a6aa",
+         "07d2449e7ddd317de8084cdd66f2b2b61bd09affd26604b0b438fb28f0b4e678",
+         "14163591c403fc2223abdaec788b9eb30e4300985e0cb4cfb3ac34a1027b319d",
+         "c510ddf200eb65d51891bb8e66a1c7e7939891948f6aaaaa0ae8cd02cb98fdb0"]),
+    "cavlc_8x8": (
+        "bench_x264_1080p_cavlc_8x8.264", (1920, 1088, 8, 26, 0, 1, 42, 1, 7),
+        "4fa441e4c76ca1e6da9ce819b23000d5f57f0aa79356c3b1a750a5adb49ff5df",
+        ["8c8660e34f11f96590483743c8ae8c8bdc328a5130440a372a9d86efb1a37f48",
+         "c675b4c2c11d6e76112c5cbb2dfd0e58b64ca9516df5c985c6c0cc32fe34593e",
+         "bff7e4f9f7817a29d7138d14dfaa754e4d5b04759d163859b4be18ce29eaa445",
+         "b1b19ccec0aef2300ccab06a7e4e939eb698cf56cdc3a30837effdbbd2e67419",
+         "f4605b3ada9b6a89b62a56c5e39b06bef4a2329d843c8708d52d8e5b616b5453",
+         "2de2cc418f794d4207d88a64a69340419b973ef6d249692a7c56cf61d2ba35e3",
+         "3d9dd36cda7de2905190e781d1a3a464d98283492a666675944dc19604308bd2",
+         "006273556e1f3b8e21e351520da35c3134e72002d2f7f7d05efc72e3409fa502"]),
+    "cabac_8x8": (
+        "bench_x264_1080p_cabac_8x8.264", (1920, 1088, 8, 26, 1, 1, 42, 1, 7),
+        "dc8526eef1bb891802037880686ccb9547b0835203d52ca153c47f62a5bc7668",
+        ["f84f8a628d751eab6524d180f52feaef7515f5ab2f4c475e4a627a2c3980b57f",
+         "9a1f41142d04abc6f1f251ee1b45ff366c62c81f18258a57f2c7f2c06c82e0c7",
+         "9aaef52f7fb8313472f1b9e026fb30ee13a3f9eb94c3aa7d37069b53675bb3f2",
+         "fb6f6057553c7cfa9c05b7fb53019fcc987e171bd6b385abd83da0d4e4f17dfb",
+         "8bf5d0690f13a0900d5211862e16b731ccbb3e165182c97def69d1686a6ff151",
+         "2e56789b865d7309901431a93a85a41890ebf3b8cc8c8a61439403420e2a8db7",
+         "7e2c7009838de1f81148ea87b28ea5626a3037385a3db9a90d50f366f65464ff",
+         "cbd7effce1280122e3840949be16f69e378e0c5e0b4cb20c72bd56c7ddb9f746"]),
+    "cabac_s4": (
+        "bench_x264_1080p_cabac_s4.264", (1920, 1088, 8, 26, 1, 0, 42, 4, 7),
+        "752c81bf28b55f5c34c50169f56d9a50c6891229c134158f2dd5904bac3390e0",
+        ["fdf0519eedc2db6adfed325ed2c604358de89fc3a10e3a5645270565568d9258",
+         "ecf1b28de0d8a1315529da0d6a25e08dcd3fe3493c4a2368a37711c1dc432028",
+         "002b85cb227f9069097abbc2c77a4b6066edfa5e6696250f6164e74ce38473cc",
+         "36b6838d0ba0ce21aba2cbb8c062e54f71b6301917ba619a4426e5605e232284",
+         "052b9325fe45c54de7a23e8d4be3c35e6cea390f46619f24c040cf44681ca5c4",
+         "a495518654fdd15ea0f77008d5d080127349b58aa71bad380ca846fa8c9c7150",
+         "8ccbd73c7227611fb1ef215820a7da3d287bc36665117186c37d5e836ed7ea7c",
+         "ebea19a926d968c2c4093d1aa1785c462fc71224e1723fae48afea7c65257786"]),
+}
+
+
+def bench_x264(name: str) -> bytes:
+    """The committed stream BENCH_X264[name]; raises where the file is
+    missing or its SHA-256 is not the pinned one."""
+    fname, _, sha, _ = BENCH_X264[name]
+    return read_pinned(fname, sha)

@@ -8,7 +8,11 @@ wave kernel's timeout path, with tolerance 0:
   * the pinned pipeline (staging ring, copy stream, compute stream,
     pinned planes) at a small size gives the JAX package's pictures
     (PIPE_DIGESTS; tests/test_torch_bench.py holds them to the JAX
-    package) for every batch, in both staging layouts.
+    package) for every batch, in both staging layouts;
+  * one 1080p batch of 16 of each committed libx264 stream of bench.py's
+    workload (testing/streams.BENCH_X264), through the bench's host_batch
+    and device staging, gives libavcodec's pinned digests with one
+    launch each.
 
 Each test skips without a CUDA card and carries the `cuda` marker.  This
 file imports neither JAX nor the JAX package:
@@ -118,3 +122,22 @@ def test_pinned_pipeline_gives_jax_pictures(cuda, monkeypatch, mode):
     for i, batch_digests in enumerate(got):
         assert batch_digests == [PIPE_DIGESTS[r % n] for r in range(batch)], i
     assert len(got) == iters
+
+
+def test_committed_x264_streams_give_libavcodec_pictures(cuda):
+    from minivideo_tpu_torch import bench
+    from minivideo_tpu_torch.ops import recon_fused as rf
+    from minivideo_tpu_torch.testing import streams as st
+    b = bench.Bench(cuda, 120, 68, bench.BATCH, 1, 1)
+    try:
+        for name, (_, _, _, digests) in st.BENCH_X264.items():
+            prep = bench.prep_pictures(st.bench_x264(name))
+            fn = b.bind(bench.host_batch(*prep, b.pool, "device", b.batch))
+            rf.wave_kernel_cuda.launches = 0
+            planes = [p.cpu().numpy() for p in fn()]
+            b.check_waits()
+            assert rf.wave_kernel_cuda.launches == 1, name
+            bench.lavc_check([[p[r] for p in planes]
+                              for r in range(b.batch)], digests, name)
+    finally:
+        b.close()
