@@ -103,8 +103,8 @@ Phases, each printing one line with its seconds:
                   cropped device RGB equals the numpy converter on the
                   cropped planes).  Then batch_thumbnail YUV420 over the
                   three MP4 files
-                  (1920x1080 files, the digests, one launch per bucket:
-                  2).
+                  (1920x1080 files, the digests, one launch per bucket
+                  and card: 2 on one card).
  12. staging    - the 1080p CAVLC batch through the three staging layouts
                   (MINIVIDEO_TPU_STAGING=device and =records through
                   decode_annexb; raster: the full native parse, pack_frames
@@ -123,7 +123,8 @@ Phases, each printing one line with its seconds:
                   files: the two 1080p CAVLC pictures alternating in 8
                   MP4, 4 Matroska and 4 MPEG-TS files, the CABAC MP4, a
                   4x3-MB clip and a 4x3-MB clip whose slice data is
-                  corrupt.  Two buckets, so two wave-kernel launches; the
+                  corrupt.  Two buckets, so two wave-kernel launches on
+                  each card of the default mesh (2 on one card); the
                   corrupt clip fails, its picture is black and the kernel
                   equals its plain version on that bucket; YUV420 files
                   give the JAX digests, PNG pixels (inflated and
@@ -201,6 +202,45 @@ Phases, each printing one line with its seconds:
                   equal the bench's own; its JSON line's figures (with
                   bits and CABAC Mbins a picture) and the trace counts
                   are printed.
+
+With several cards visible, batch_thumbnail's default mesh (phases 11
+and 15) covers them all, and its launch pins are per bucket and card.
+
+    python3 chip_smoke.py --cards N
+
+runs phases 1 and 2 (phase 1 exits non-zero where fewer than N cards are
+present, and prints every card's name and power limit), then only the
+scale-out layer over cuda:0..N-1, every output bit-exact:
+
+ cards (a)      - each card alone: decode_annexb(device="cuda:k") of the
+                  1080p CAVLC batch of 16 gives the JAX digests with its
+                  one launch on card k and none elsewhere, and no other
+                  card's allocator grows (peak against what it held);
+                  the kernel equals its plain version on each card.
+       (b)      - batch_thumbnail with no mesh and no device runs over
+                  make_mesh() of every card ((N/2)x2): the thumbnails
+                  phase's 19 files as YUV420 and PNG give the pinned
+                  digests with 2 launches on each card; "recon" and
+                  thumbnails/s over the cards beside the same mesh shape
+                  on cuda:0 (host clock, median of 3, in turns); the
+                  1080p CAVLC and CABAC batches of 16 through _Recon over
+                  the cards give the JAX digests, one launch a card, and
+                  each card's kernel (CUDA events around the launch
+                  alone) must begin before the card launched just before
+                  it has ended; each pair's overlap and the set-up the
+                  host spent before each launch are printed.
+       (c)      - the halo with one strip per card: the 1080p CABAC pair
+                  repeated until its lane axis (61 lanes a picture)
+                  divides over N gives the JAX digests with no kernel
+                  launch; seconds a batch beside the same batch over N
+                  strips of cuda:0, the cross-card copies a wave, and
+                  whether peer access is on.
+       (d)      - run_multihost_dryrun over 4 1080p CAVLC clip files of
+                  one picture, N processes x 1 card and (N even) N/2 x 2:
+                  every worker on nccl with a hub card of its own, phase
+                  A once on each card, phase A and B planes equal to the
+                  first JAX digest; all_reduces a batch and seconds per
+                  phase.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -301,13 +341,14 @@ def log(phase, t0, msg):
     print(f"[{phase}] {time.time() - t0:.2f}s {msg}{card}", flush=True)
 
 
-def nvidia_smi_line():
+def nvidia_smi_lines():
+    """nvidia-smi's "name, power limit" of every card, in its order."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60)
     if r.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
+    return r.stdout.strip().splitlines()
 
 
 def sha(a):
@@ -472,10 +513,12 @@ def breakdown(stream, dev, mode=None):
 
 
 def decode_counted(fn):
-    """(fn()'s result, wave kernel launches in that call): the count is set
-    to 0 just before and read just after."""
+    """(fn()'s result, wave kernel launches in that call): the count and
+    the count per card are set to 0 just before, the count read just
+    after."""
     from minivideo_tpu_torch.ops import recon_fused
     recon_fused.wave_kernel_cuda.launches = 0
+    recon_fused.wave_kernel_cuda.launches_by_device = {}
     out = fn()
     return out, recon_fused.wave_kernel_cuda.launches
 
@@ -1255,12 +1298,14 @@ def phase_x264_1080p(t0, dev, streams):
         got = [[sha(a) for a in yuv_planes(outs[n], 1080, 1920)]
                if n in outs else None for n in st.X264_1080P]
         want = [v[3] for v in st.X264_1080P.values()]
-        good = got == want and not res.failed and launches == 2
+        n = default_entries()
+        good = got == want and not res.failed and launches == 2 * n
         ok = ok and good
         log("x264_1080p", t0, f"batch_thumbnail YUV420 over the 3 MP4 "
             f"files in {secs:.3f}s: 1920x1080 files "
             f"{'=' if got == want else '!='} libavcodec's digests, "
-            f"wave_kernel launches {launches} (want 2, one per bucket) "
+            f"wave_kernel launches {launches} (want {2 * n}, one per "
+            f"bucket and card) "
             + ("ok" if good else "FAILED"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1414,6 +1459,13 @@ def yuv_planes(path, h, w):
     return (raw[:h * w].reshape(h, w),
             raw[h * w:h * w + c].reshape(h // 2, w // 2),
             raw[h * w + c:].reshape(h // 2, w // 2))
+
+
+def default_entries():
+    """The entries of batch_thumbnail's default mesh (make_mesh(): one
+    per card), each of which launches once per bucket."""
+    from minivideo_tpu_torch.parallel.sharding import make_mesh
+    return make_mesh().devices.size
 
 
 def batch_run(clips, outdir, fmt, **kw):
@@ -1652,7 +1704,7 @@ def phase_thumbnails(t0, dev, streams):
     try:
         clips, want = write_thumbnail_clips(tmp, streams)
         bad, n_good = clips[-1], len(clips) - 1
-        runs, planes = {}, {}
+        runs, planes, n_cards = {}, {}, default_entries()
         for fmt in ("YUV420", "PNG", "JPG"):
             runs[fmt] = []
             for rep in range(3):
@@ -1667,7 +1719,7 @@ def phase_thumbnails(t0, dev, streams):
                                                       planes)
                 black, err_small = small_bucket_check(recons, dev)
                 good = (files_ok and res.done == n_good and res.failed == 1
-                        and res.skipped == 0 and launches == 2
+                        and res.skipped == 0 and launches == 2 * n_cards
                         and list(res.errors) == [bad] and black == [1]
                         and err_small == 0)
                 ok = ok and good
@@ -1677,8 +1729,9 @@ def phase_thumbnails(t0, dev, streams):
                     f"{res.frames} frames, {len(res.outputs)} files "
                     f"({nbytes} bytes), every file "
                     f"{'=' if files_ok else '!='} its pinned digest, "
-                    f"wave_kernel launches {launches} (want 2, one per "
-                    f"bucket); small bucket: black rows {black} (want [1], "
+                    f"wave_kernel launches {launches} (want {2 * n_cards}, "
+                    f"one per bucket and card); small bucket: black rows "
+                    f"{black} (want [1], "
                     f"the corrupt clip), kernel vs plain max|err| "
                     f"{err_small} " + ("ok" if good else "FAILED"))
                 if fmt == "YUV420":
@@ -1943,14 +1996,20 @@ def phase_engines(t0, dev, streams):
 
 def card_mesh(dev, n, axis=None):
     """A mesh of n entries that all name `dev`: 2 x 2 ("data", "seq")
-    by make_mesh, or one axis named `axis`."""
-    from minivideo_tpu_torch.parallel.sharding import Mesh, make_mesh
+    by make_mesh, or one axis named `axis` (lanes_mesh)."""
+    from minivideo_tpu_torch.parallel.sharding import make_mesh
     if axis is None:
         return make_mesh(devices=[dev] * n)
+    return lanes_mesh([dev] * n, axis)
+
+
+def lanes_mesh(devs, axis="lanes"):
+    """A one-axis mesh over `devs`."""
     import numpy as np
-    devs = np.empty(n, dtype=object)
-    devs[:] = [dev] * n
-    return Mesh(devs, (axis,))
+    from minivideo_tpu_torch.parallel.sharding import Mesh
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = devs
+    return Mesh(arr, (axis,))
 
 
 def scaleout_mesh(t0, dev, streams):
@@ -2129,6 +2188,384 @@ def phase_scaleout(t0, dev, streams):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# --cards N: the scale-out layer over N cards (MULTICHIP_r05's phases A-C)
+
+def counted_by_card(fn):
+    """(fn()'s result, {card index: wave kernel launches} in that call),
+    counted as decode_counted counts."""
+    from minivideo_tpu_torch.ops import recon_fused
+    out, _ = decode_counted(fn)
+    return out, dict(sorted(
+        recon_fused.wave_kernel_cuda.launches_by_device.items()))
+
+
+def kernel_windows(fn, cards):
+    """(fn()'s result, [(card, set-up start ms, start ms, end ms)] of
+    every wave-kernel launch in it): CUDA events on the launching stream
+    as _wave_launch begins (before its checks, table lookup, plane
+    allocation and counter memset), just before mvt_wave_run and just
+    after it, so start-end holds the kernel alone.  Each is timed from a
+    reference event recorded on its card's stream, idle, just before fn
+    runs.  The host records the references one after another,
+    microseconds apart, so the windows of different cards share one
+    time base to within that."""
+    import torch
+    from minivideo_tpu_torch.ops import recon_fused
+    real, marks = recon_fused._wave_launch, []
+
+    class Timed:
+        """The library of load() with its launch between two events."""
+
+        def __init__(self, lib, stream, s, e):
+            self.lib, self.stream, self.s, self.e = lib, stream, s, e
+
+        def mvt_wave_run(self, *args):
+            self.s.record(self.stream)
+            err = self.lib.mvt_wave_run(*args)
+            self.e.record(self.stream)
+            return err
+
+    def launch(load, meta_slab, *args):
+        stream = torch.cuda.current_stream(meta_slab.device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record(stream)
+        out = real(lambda: Timed(load(), stream, *ev[1:]), meta_slab,
+                   *args)
+        marks.append((meta_slab.device.index, *ev))
+        return out
+
+    for c in cards:
+        torch.cuda.synchronize(c)
+    refs = {}
+    for c in cards:
+        refs[c.index] = torch.cuda.Event(enable_timing=True)
+        refs[c.index].record(torch.cuda.current_stream(c))
+    recon_fused._wave_launch = launch
+    try:
+        out = fn()
+    finally:
+        recon_fused._wave_launch = real
+    for c in cards:
+        torch.cuda.synchronize(c)
+    return out, sorted((k, *(refs[k].elapsed_time(x) for x in ev))
+                       for k, *ev in marks)
+
+
+def windows_text(windows):
+    """The kernel windows as text (each with the set-up before it), the
+    overlap of each pair of them (ms; <= 0: one kernel ended before the
+    other began), and how long all of them overlap (-inf: no window)."""
+    if not windows:
+        return "none", {}, -math.inf
+    pairs = {f"{a[0]}&{b[0]}": min(a[3], b[3]) - max(a[2], b[2])
+             for i, a in enumerate(windows) for b in windows[i + 1:]}
+    common = (min(w[3] for w in windows) - max(w[2] for w in windows))
+    return (", ".join(f"cuda:{k} {s:.3f}-{e:.3f} ({e - s:.3f}, set-up "
+                      f"{s - s0:.3f} before)" for k, s0, s, e in windows),
+            pairs, common)
+
+
+def cards_streams(t0):
+    """The 1080p CAVLC and CABAC batches of 16 and their two pictures,
+    SHA-256 checked, as phases 3 and 8 make them; None on a mismatch."""
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    from minivideo_tpu_torch.testing.h264enc2 import make_stream2
+    from minivideo_tpu_torch.testing.streams import repeat_pictures
+    t = time.time()
+    cavlc, cabac = make_stream(**STREAM_KW), make_stream2(**CABAC_KW)
+    ok = (hashlib.sha256(cavlc).hexdigest() == STREAM_SHA256
+          and hashlib.sha256(cabac).hexdigest() == CABAC_SHA256)
+    log("cards", t0, f"1080p CAVLC and CABAC pairs encoded in "
+        f"{time.time() - t:.2f}s, SHA-256 " + ("ok" if ok else "MISMATCH"))
+    if not ok:
+        return None
+    return {"cavlc": repeat_pictures(cavlc, BATCH // 2), "cavlc2": cavlc,
+            "cabac": repeat_pictures(cabac, BATCH // 2), "cabac2": cabac}
+
+
+def cards_alone(t0, cards, streams, summary):
+    """(a) Every card alone: decode_annexb of the 16-picture CAVLC batch
+    with device=cuda:k gives the JAX digests with its one launch on card
+    k, and no other card's allocator grows (its peak stays at what it
+    held before); the kernel equals its plain version there on a small
+    stream."""
+    import torch
+    from minivideo_tpu_torch.models.h264.decoder import decode_annexb
+    from minivideo_tpu_torch.testing.h264enc import make_stream
+    want = [JAX_DIGESTS[i % 2] for i in range(BATCH)]
+    small = make_stream(**SMALL[1])
+    ok, rows = True, []
+    for k, dev in enumerate(cards):
+        held = [torch.cuda.memory_allocated(c) for c in cards]
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        t = time.time()
+        pics, by_card = counted_by_card(
+            lambda: decode_annexb(streams["cavlc"], device=dev))
+        secs = time.time() - t
+        grew = [j for j, c in enumerate(cards)
+                if j != k and torch.cuda.max_memory_allocated(c) > held[j]]
+        same = digests(pics) == want
+        packed, arrs, _ = staged(small, dev)
+        err = compare_kernel(packed, arrs)[0]
+        good = same and by_card == {k: 1} and not grew and err == 0
+        ok = ok and good
+        rows.append({"card": k, "s": secs, "launches": by_card,
+                     "max_abs_err": err})
+        log("cards", t0, f"(a) {dev} alone: decode_annexb 1080p x{BATCH} "
+            f"planes {'=' if same else '!='} the JAX digests, launches by "
+            f"card {by_card} (want {{{k}: 1}}), other cards' allocators "
+            f"grew on {grew or 'none'}, kernel vs plain on a "
+            f"{SMALL[1]['width_mbs']}x{SMALL[1]['height_mbs']} stream "
+            f"max|err| {err}; {secs:.3f} s (host clock, with the parse) "
+            + ("ok" if good else "FAILED"))
+    summary["alone"] = rows
+    return ok
+
+
+def cards_mesh(t0, cards, streams, summary):
+    """(b) Phase A: batch_thumbnail with no mesh and no device runs over
+    make_mesh() of every card; the thumbnails phase's 19 files as YUV420
+    and PNG give the pinned digests with 2 launches on each card (one per
+    bucket); "recon" over the cards beside the same mesh shape on cuda:0
+    (host clock, median of 3, in turns); then the 16-picture 1080p CAVLC
+    and CABAC batches through _Recon over the cards, the JAX digests,
+    with each card's kernel window."""
+    import shutil
+    import tempfile
+    import torch
+    from minivideo_tpu_torch.parallel import batch
+    from minivideo_tpu_torch.parallel.sharding import make_mesh
+    n = len(cards)
+    mesh = batch._mesh_of(None, None)
+    want_mesh = make_mesh(devices=cards)
+    ok = (mesh.axis_names == ("data", "seq")
+          and mesh.devices.tolist() == want_mesh.devices.tolist())
+    shape = f"{mesh.shape['data']}x{mesh.shape['seq']}"
+    log("cards", t0, f"(b) batch_thumbnail's default mesh: {shape} "
+        f"{[[str(d) for d in r] for r in mesh.devices]} "
+        + ("ok" if ok else f"FAILED (want {want_mesh.devices.tolist()})"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    out = {"mesh": shape}
+    try:
+        clips, want = write_thumbnail_clips(tmp, streams)
+        bad, n_good = clips[-1], len(clips) - 1
+        planes = {}
+        for fmt in ("YUV420", "PNG"):
+            (res, _, secs, recons), by_card = counted_by_card(
+                lambda: batch_run(clips, os.path.join(tmp, fmt), fmt))
+            files_ok, nbytes = thumbnail_files_ok(fmt, res, want, planes)
+            black, err_small = small_bucket_check(recons, cards[0])
+            good = (files_ok and res.done == n_good and res.failed == 1
+                    and list(res.errors) == [bad] and len(recons) == 2
+                    and by_card == {k: 2 for k in range(n)}
+                    and black == [1] and err_small == 0)
+            ok = ok and good
+            out[f"launches_{fmt}"] = by_card
+            log("cards", t0, f"(b) batch_thumbnail {fmt}, no mesh: "
+                f"{res.done} done, {res.failed} failed, {len(res.outputs)} "
+                f"files ({nbytes} bytes), every file "
+                f"{'=' if files_ok else '!='} its pinned digest, launches "
+                f"by card {by_card} (want 2 each: {len(recons)} buckets); "
+                f"small bucket black rows {black}, kernel vs plain max|err| "
+                f"{err_small}; {secs:.3f} s " + ("ok" if good else "FAILED"))
+        runs = {"cards": [], "cuda:0": []}
+        for rep in range(3):
+            for name, kw in (("cards", {}),
+                             ("cuda:0", {"mesh": card_mesh(cards[0], n)})):
+                dst = os.path.join(tmp, f"t{name}{rep}")
+                res, timer, secs, _ = batch_run(clips, dst, "YUV420", **kw)
+                runs[name].append((timer.acc["recon"], secs))
+                shutil.rmtree(dst)
+        for name, rs in runs.items():
+            recon_s = statistics.median(r[0] for r in rs)
+            wall = statistics.median(r[1] for r in rs)
+            out[f"recon_s_{name}"] = recon_s
+            out[f"thumbnails_per_s_{name}"] = n_good / wall
+            log("cards", t0, f"(b) YUV420 over a {shape} mesh of "
+                f"{'the cards' if name == 'cards' else name} (host clock, "
+                f"median of 3, in turns): recon {recon_s:.4f} s "
+                f"{[round(r[0], 4) for r in rs]}, batch_thumbnail "
+                f"{wall:.4f} s, {n_good / wall:.2f} thumbnails/s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    recon = batch._Recon(mesh, "fused")
+    cpu = torch.device("cpu")
+    for name, digs in (("cavlc", JAX_DIGESTS), ("cabac", CABAC_DIGESTS)):
+        packed, _, _ = staged(streams[name], cpu)
+        (planes, windows), by_card = counted_by_card(
+            lambda: kernel_windows(lambda: recon(packed), cards))
+        got = [[sha(p[i]) for p in planes[:3]] for i in range(BATCH)]
+        same = got == [digs[i % 2] for i in range(BATCH)]
+        text, pairs, common = windows_text(windows)
+        # in launch order, each card's kernel must begin before the one
+        # launched just before it has ended: no card waits for another
+        follow = [pairs[f"{k - 1}&{k}"] for k in range(1, n)]
+        good = (same and by_card == {k: 1 for k in range(n)}
+                and all(o > 0 for o in follow))
+        ok = ok and good
+        out[f"windows_{name}"] = windows
+        log("cards", t0, f"(b) _Recon over the cards, 1080p {name} "
+            f"x{BATCH} ({-(-BATCH // n)} a card): planes "
+            f"{'=' if same else '!='} the JAX digests, launches by card "
+            f"{by_card}; kernel windows (ms from each card's reference "
+            f"event, CUDA events, the kernel alone): {text}; overlap by "
+            f"pair (ms) " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                      pairs.items())
+            + f"; all overlap for {common:.3f} ms "
+            + ("ok" if good else "FAILED"))
+        out[f"overlap_{name}"] = {"pairs": pairs, "all": common}
+    summary["mesh"] = out
+    return ok
+
+
+def cards_halo(t0, cards, streams, summary):
+    """(c) Phase B: the halo over one strip per card, the 1080p CABAC
+    pair repeated until the lane axis (61 lanes a picture) divides over
+    the cards: the JAX digests, no wave-kernel launch, seconds a batch;
+    then the same batch over as many strips of cuda:0."""
+    import torch
+    from minivideo_tpu_torch.ops.recon_wave import skew_tables
+    from minivideo_tpu_torch.parallel.halo import reconstruct_frames_halo
+    from minivideo_tpu_torch.testing.streams import repeat_pictures
+    n = len(cards)
+    maxw = skew_tables(STREAM_KW["width_mbs"],
+                       STREAM_KW["height_mbs"])["maxw"]
+    b = 2
+    while (b * maxw) % n:
+        b += 2
+    packed, _, _ = staged(repeat_pictures(streams["cabac2"], b // 2),
+                          cards[0])
+    want = [CABAC_DIGESTS[i % 2] for i in range(b)]
+    peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in range(n) for j in range(n) if i != j}
+    ok, out = True, {"batch": b, "lanes": b * maxw, "peer": peer}
+    for name, devs in (("cards", cards), ("cuda:0", [cards[0]] * n)):
+        hub = devs[0]
+        crossings = 2 * sum(d != hub for d in devs)
+        t = time.time()
+        planes, by_card = counted_by_card(
+            lambda: reconstruct_frames_halo(packed, lanes_mesh(devs)))
+        for c in cards:
+            torch.cuda.synchronize(c)
+        secs = time.time() - t
+        same = plane_digests(planes) == want
+        good = same and by_card == {} and planes[0].device == hub
+        ok = ok and good
+        out[f"s_{name}"] = secs
+        log("cards", t0, f"(c) halo, 1080p CABAC x{b} (lane axis "
+            f"{b * maxw} over {n} strips of "
+            f"{'the cards' if name == 'cards' else name}): planes "
+            f"{'=' if same else '!='} the JAX digests, wave_kernel "
+            f"launches {by_card or 0} (want 0); {secs:.3f} s a batch "
+            f"(host clock, one run); cross-card copies a wave "
+            f"{crossings} (halo_loop: each strip's edges to the hub and "
+            f"its neighbours' rows back, for each strip off the hub) "
+            + ("ok" if good else "FAILED"))
+    log("cards", t0, f"(c) peer access between the cards "
+        f"(torch.cuda.can_device_access_peer): {peer}")
+    summary["halo"] = out
+    return ok
+
+
+def cards_multihost(t0, cards, streams, summary):
+    """(d) Phase C: run_multihost_dryrun over the cards, N processes x 1
+    card and, for an even N, N/2 x 2, over 4 1080p CAVLC clip files of
+    the first picture: every worker on nccl with its own cards and a hub
+    no other worker holds, phase A once on each of its cards, phase A
+    and B planes equal to the first JAX digest in every process."""
+    import ast
+    import re
+    import shutil
+    import tempfile
+    import numpy as np
+    from minivideo_tpu_torch.parallel.multihost import run_multihost_dryrun
+    n = len(cards)
+    layouts = [(n, 1)] + ([(n // 2, 2)] if n % 2 == 0 else [])
+    ok, rows = True, []
+    for nprocs, dpp in layouts:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_mh_")
+        try:
+            files = []
+            for i in range(4):
+                files.append(os.path.join(tmp, f"clip{i}.264"))
+                with open(files[-1], "wb") as f:
+                    f.write(picture_stream(streams["cavlc"], 0))
+            t = time.time()
+            try:
+                text = run_multihost_dryrun(
+                    nprocs=nprocs, devices_per_proc=dpp, timeout=300,
+                    clip_files=files, out_dir=tmp)
+                err = None
+            except RuntimeError as e:
+                text, err = str(e), e
+            secs = time.time() - t
+            for line in text.splitlines():
+                if line.startswith("mh["):
+                    log("cards", t0, f"(d) {nprocs}x{dpp} " + line)
+            good = err is None
+            workers = re.findall(r"entries on (.*) \(hub ([^)]+)\), "
+                                 r"\d+ global, backend (\w+)", text)
+            by_card = [ast.literal_eval(m) for m in re.findall(
+                r"wave_kernel launches \d+ by card (\{[^}]*\})", text)]
+            reduces = re.findall(r"all_reduces this batch (\d+)", text)
+            phase_s = re.findall(r"\[(\d+)\]: phase ([AB]) OK.*\(([^()]*)\)$",
+                                 text, re.M)
+            hubs = [h for _, h, _ in workers]
+            good = (good and len(workers) == nprocs
+                    and all(b == "nccl" for _, _, b in workers)
+                    and len(set(hubs)) == nprocs
+                    and sorted(k for d in by_card for k in d)
+                    == list(range(n))
+                    and all(v == 1 for d in by_card for v in d.values()))
+            for pid in range(nprocs if good else 0):
+                z = np.load(os.path.join(tmp, f"mh_planes.{pid}.npz"))
+                for ph in ("a", "b"):
+                    m = z[f"{ph}_y"].shape[0]
+                    good = good and m > 0 and all(
+                        [sha(z[f"{ph}_{k}"][i]) for k in ("y", "cb", "cr")]
+                        == JAX_DIGESTS[0] for i in range(m))
+            ok = ok and good
+            rows.append({"procs": nprocs, "cards_each": dpp,
+                         "backends": [b for _, _, b in workers],
+                         "hubs": hubs, "launches": by_card,
+                         "all_reduces_a_batch": reduces, "s": secs})
+            log("cards", t0, f"(d) run_multihost_dryrun {nprocs} processes "
+                f"x {dpp} cards: backends {[b for _, _, b in workers]}, "
+                f"cards {[w for w, _, _ in workers]}, hubs {hubs}, phase A "
+                f"launches by card {by_card} (want 1 on each card), "
+                f"all_reduces a phase-B batch {reduces} (+1 count reduce), "
+                f"phase seconds {phase_s}; planes "
+                f"{'=' if good else '!='} the JAX digest; {secs:.3f} s with "
+                f"the workers' start " + ("ok" if good else
+                                         f"FAILED {str(err)[-2000:]}"
+                                         if err else "FAILED"))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    summary["multihost"] = rows
+    return ok
+
+
+def phase_cards(t0, n):
+    """The scale-out layer over cards cuda:0..n-1 (see the docstring's
+    --cards mode).  Returns (whether every check held, the summary)."""
+    import torch
+    cards = [torch.device(f"cuda:{k}") for k in range(n)]
+    summary = {"cards": n}
+    streams = cards_streams(t0)
+    if streams is None:
+        return False, summary
+    ok = True
+    for part in (cards_alone, cards_mesh, cards_halo, cards_multihost):
+        t = time.time()
+        good = part(t0, cards, streams, summary)
+        log("cards", t0, f"{part.__name__}: {time.time() - t:.2f} s "
+            + ("ok" if good else "FAILED"))
+        ok = ok and good
+    return ok, summary
+
+
 # the bench phase's arguments: python -m minivideo_tpu_torch.bench's
 # defaults (1080p, batch 16, 16 batches a run, 3 runs)
 BENCH_ARGS = ["--iters", "16", "--runs", "3"]
@@ -2230,7 +2667,14 @@ def phase_bench(t0, dev, streams):
     return ok and all(checks.values())
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
+                                 "on the card (see the module docstring).")
+    ap.add_argument("--cards", type=int, default=None, metavar="N",
+                    help="run phases 1-2 and the scale-out phase 'cards' "
+                    "over cuda:0..N-1 only; fewer cards exit non-zero")
+    args = ap.parse_args(argv)
     t0 = time.time()
     failed = []
 
@@ -2239,6 +2683,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if args.cards is not None and not \
+            1 <= args.cards <= torch.cuda.device_count():
+        print(f"chip_smoke: --cards {args.cards} asks for more cards than "
+              f"the {torch.cuda.device_count()} present (or fewer than 1)",
+              file=sys.stderr)
         return 2
     import minivideo_tpu_torch
     pkg = os.path.dirname(os.path.abspath(minivideo_tpu_torch.__file__))
@@ -2253,12 +2703,16 @@ def main():
     from minivideo_tpu_torch.testing.h264enc import make_stream
     from minivideo_tpu_torch.testing.streams import repeat_pictures
     dev = torch.device("cuda")
-    card = nvidia_smi_line()
+    card_lines = nvidia_smi_lines()
+    card = card_lines[0]
     CARD.append(card)
     kind = torch.cuda.get_device_name(0)
     log("device", t0, f"{kind} | nvidia-smi: {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"count {torch.cuda.device_count()}")
+    for k, line in enumerate(card_lines):
+        log("device", t0, f"cuda:{k} {torch.cuda.get_device_name(k)} | "
+            f"nvidia-smi: {line}")
 
     # ---- 2. build (every compiler at once) ---------------------------------
     builds = {}
@@ -2293,6 +2747,19 @@ def main():
         if "ptxas info" in line and ("registers" in line or "smem" in line
                                      or "Compiling" in line):
             log("build", t0, line.strip())
+
+    if args.cards is not None:
+        ok, summary = phase_cards(t0, args.cards)
+        print(json.dumps(dict(summary, card_lines=card_lines)))
+        log("total", t0, "command time")
+        if not ok:
+            print("chip_smoke: failed phases: ['cards']", file=sys.stderr)
+            return 1
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. stream ---------------------------------------------------------
     t = time.time()

@@ -290,12 +290,16 @@ def wave_kernel_cuda(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
     raster (Y [B, 16*hmb, 16*wmb], Cb, Cr [B, 8*hmb, 8*wmb]) uint8.
     With `check` (the default) it waits for the kernel and raises if a
     wait between rows timed out (see check_waits); check=False leaves the
-    launch in flight, for timing, and the next check_waits() checks it.
-    `wave_kernel_cuda.launches` counts the kernel's launches."""
+    launch in flight, for timing or for other cards' launches to follow,
+    and the next check_waits() checks it.  `wave_kernel_cuda.launches`
+    counts the kernel's launches, `wave_kernel_cuda.launches_by_device`
+    them per card index."""
     Y, Cb, Cr, word = _wave_launch(
         kernels.load, meta_slab, luma_slab, chroma_slab, dc_slab, ls4,
         ls8, wmb, hmb, has8x8, haspcm)
     wave_kernel_cuda.launches += 1
+    by_card, card = wave_kernel_cuda.launches_by_device, meta_slab.device.index
+    by_card[card] = by_card.get(card, 0) + 1
     if check:
         check_waits(word)
     else:
@@ -305,8 +309,10 @@ def wave_kernel_cuda(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
 
 # plain integer count of csrc/wave_kernel.cu launches: the wrapper adds
 # one per batch once mvt_wave_run has launched, and nowhere else; callers
-# reset it to 0 to count a run
+# reset it to 0 to count a run.  Beside it the same count per card, a
+# plain dict of device index to launches, which callers reset to {}.
 wave_kernel_cuda.launches = 0
+wave_kernel_cuda.launches_by_device = {}
 
 
 # ---------------------------------------------------------------------------
@@ -387,11 +393,13 @@ def records_feeds(arrays, cb_off, cr_off, wmb, hmb, batch):
 
 
 def make_reconstruct_fused(wmb: int, hmb: int, batch: int,
-                           has8x8: bool = True, haspcm: bool = True):
+                           has8x8: bool = True, haspcm: bool = True,
+                           check: bool = True):
     """Reconstructor over RASTER-order PackedFrames tensors (the Python
     parsers' and the native raster parse's layout): raster_feeds, then
-    the device-layout reconstructor."""
-    recon2 = make_reconstruct_fused_slots2(wmb, hmb, batch, has8x8, haspcm)
+    the device-layout reconstructor (`check` as there)."""
+    recon2 = make_reconstruct_fused_slots2(wmb, hmb, batch, has8x8, haspcm,
+                                           check)
 
     def recon(arrays, ls4, ls8, cb_off, cr_off):
         return recon2(*raster_feeds(arrays, cb_off, cr_off, wmb, hmb,
@@ -430,15 +438,17 @@ def to_device(packed: PackedFrames, device=None) -> PackedFrames:
     return out
 
 
-def reconstruct_frames_fused(packed: PackedFrames, device=None):
+def reconstruct_frames_fused(packed: PackedFrames, device=None,
+                             check: bool = True):
     """Decode a PackedFrames batch of any staging layout with the fused
     engine on `device` (default: where its staging tensors lie, or the
     GPU for numpy staging).  Dispatches on packed.slots; every layout
     reaches the same kernel (CUDA tensors) or plain loop (CPU tensors).
-    Returns (Y, Cb, Cr) uint8 tensors [B, H, W] on that device."""
+    `check` goes to wave_kernel_cuda.  Returns (Y, Cb, Cr) uint8 tensors
+    [B, H, W] on that device."""
     packed = to_device(packed, device)
     args = (packed.wmb, packed.hmb, packed.batch, packed.has8x8,
-            packed.haspcm)
+            packed.haspcm, check)
     if packed.slots == 2:
         return make_reconstruct_fused_slots2(*args)(
             *(packed.arrays[k] for k in DEVICE_STAGING), packed.ls4, packed.ls8)

@@ -36,11 +36,11 @@ the 64-error tolerance, h264.c:181-187 — but scoped per clip, not
 per NALU).  Resume: clips already marked done in the manifest are
 skipped.
 
-Where the port differs from the JAX module: without a mesh it runs on
-one device (`device`, the card unless the caller names another, as
-mv_decode), a 1x1 mesh; a mesh may name one device more than once
-(sharding.py), and its shards run one after another from this process;
-the process index and count come from torch.distributed; the JAX compile
+Where the port differs from the JAX module: a named `device` runs as a
+1x1 mesh of that device, as mv_decode; a mesh may name one device more
+than once (sharding.py), and its shards run from one thread per distinct
+device of this process, a device's shards one after another; the
+process index and count come from torch.distributed; the JAX compile
 cache has no counterpart; and the RGB of RGB formats is converted on
 each shard's device before the readback instead of after it.  The
 decoder is imported only when the function is called, so importing this
@@ -59,7 +59,7 @@ import numpy as np
 from .. import trace
 from ..codecs import PictureFormat, PictureRepartition
 from .manifest import Manifest
-from .sharding import Mesh, shard_packed
+from .sharding import Mesh, make_mesh, shard_frames
 
 _RGB_FORMATS = (PictureFormat.PNG, PictureFormat.BMP, PictureFormat.TGA)
 
@@ -250,7 +250,7 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
 class _Recon:
     """The bucket reconstruction over a mesh: the bucket padded to the
     mesh size and split into one contiguous run of frames per mesh entry
-    (sharding.shard_packed, which pads on the entries' devices and is
+    (sharding.shard_frames, which pads on the entries' devices and is
     also the staging copy), then per
     entry, on its device: the fused engine (reconstruct_frames_fused:
     one wave_kernel.cu launch on the card, the plain loop on the CPU) or,
@@ -271,21 +271,42 @@ class _Recon:
         """packed: PackedFrames (any staging layout) -> (Y, Cb, Cr,
         RGB or None) numpy, one row per real frame."""
         import dataclasses
+        from ..ops import recon_fused
         from ..ops.color import yuv420_to_rgb_device
-        from ..ops.recon_fused import reconstruct_frames_fused
         from ..ops.recon_wave import reconstruct_frames_wave
-        recon = (reconstruct_frames_fused if self.engine == "fused"
-                 else reconstruct_frames_wave)
-        shards = shard_packed(self.mesh, packed.arrays, packed.ls4,
-                              packed.ls8)
+        fused = self.engine == "fused"
+        devs = list(self.mesh.devices.flat)
+        shards = [None] * len(devs)
+
+        def stage(entries):
+            for i in entries:
+                shards[i] = shard_frames(packed.arrays, i, len(devs),
+                                         devs[i])
+
+        # The shards of each device are copied by a thread of its own, so
+        # the cards' copies overlap (entries that share a device, as a
+        # 2x2 mesh of one card, are copied in mesh order by one thread).
+        # Then every shard is launched from here, unchecked, so no card
+        # waits on the host for another card's kernel, and one
+        # check_waits() before the first readback raises for a row
+        # timeout on any card.
+        by_dev: dict = {}
+        for i, d in enumerate(devs):
+            by_dev.setdefault(d, []).append(i)
+        with ThreadPoolExecutor(max_workers=len(by_dev)) as pool:
+            for fut in [pool.submit(stage, e) for e in by_dev.values()]:
+                fut.result()
         outs = []
-        for (arrs, _, _), dev in zip(shards, self.mesh.devices.flat):
+        for arrs, dev in zip(shards, devs):
             shard = dataclasses.replace(packed, arrays=arrs)
             shard.__dict__["haspcm"] = packed.haspcm   # the batch's flag
-            planes = recon(shard, dev)
+            planes = (recon_fused.reconstruct_frames_fused(
+                shard, dev, check=False) if fused
+                else reconstruct_frames_wave(shard, dev))
             rgb = yuv420_to_rgb_device(*planes) if want_rgb else None
             outs.append((*planes, rgb))
-        # every shard is launched before the first readback
+        if fused:
+            recon_fused.check_waits()
         host = [[p.cpu().numpy() for p in out if p is not None]
                 for out in outs]
         cols = [np.concatenate(c)[:packed.batch] for c in zip(*host)]
@@ -293,13 +314,16 @@ class _Recon:
 
 
 def _mesh_of(mesh, device):
-    """The mesh batch_thumbnail runs on: `mesh`, or the one resolved
-    device (the card unless `device` names another) as a 1x1 mesh."""
+    """The mesh batch_thumbnail runs on: `mesh`; a named `device` as a
+    1x1 mesh; else sharding.make_mesh() over every card (no card:
+    raises)."""
     from ..device import resolve_device
     if mesh is not None:
         if device is not None:
             raise ValueError("pass a mesh or a device, not both")
         return mesh
+    if device is None:
+        return make_mesh()
     return Mesh(np.array([[resolve_device(device)]], dtype=object),
                 ("data", "seq"))
 
@@ -325,8 +349,10 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
                     io_workers: int = 8) -> BatchResult:
     """Thumbnail a list of clips, sharded across the entries of `mesh`
     (sharding.make_mesh) and across processes.  Without a mesh it runs
-    on one device: the card unless `device` names another ("cpu" runs
-    the engine's torch ops there); passing both raises.  engine: "fused"
+    on a named `device` alone ("cpu" runs the engine's torch ops there),
+    else, as the JAX module, over make_mesh(): every card, a 1x1 mesh of
+    cuda:0 on a one-card host (no card raises); passing a mesh and a
+    device raises.  engine: "fused"
     (default; one wave_kernel launch per mesh entry and bucket on the
     card), "wave" or "np" (both the wave loop, without device RGB under
     "np").  process_index / process_count default to the rank and world

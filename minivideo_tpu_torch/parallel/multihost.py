@@ -1,8 +1,10 @@
 """Multi-process execution: torch.distributed workers.
 
 Port of minivideo_tpu/parallel/multihost.py.  N worker processes join one
-process group; each owns `--devices` mesh entries of one device (its card
-by default, or the CPU):
+process group; each owns `--devices` mesh entries (`placement`): by
+default process p takes cards p*K .. p*K + K - 1 (modulo the card count),
+the JAX module's reshape(nprocs, K) of the global devices, its hub (the
+first) for the process group; a named device (the CPU) holds every entry:
 
   * phase A (data parallel over clips): each process entropy-decodes ITS
     OWN partition of the clip set host-locally, writes its per-process
@@ -19,8 +21,8 @@ by default, or the CPU):
     each process fills its own strips' rows.  The strips' planes are
     gathered the same way, and every process checks every picture.
 
-Backend: "nccl" where every rank has a card of its own, "gloo" on the CPU
-and where ranks share a card (NCCL refuses two ranks on one GPU).  Gloo
+Backend: "nccl" where no two ranks' hubs are one card, "gloo" on the CPU
+and where hubs share a card (NCCL refuses two ranks on one GPU).  Gloo
 takes CUDA tensors for all_reduce and broadcast only, hence all_reduce
 for every exchange: one code path for nccl, gloo on the CPU and gloo on
 the card.
@@ -94,12 +96,25 @@ def _parse_clip_syntax(data: bytes):
     return dec.parse_idr_syntax(group)
 
 
-def _backend(device, nprocs: int) -> str:
-    """nccl where every rank has a card of its own, else gloo."""
+def placement(pid: int, nprocs: int, devices_per_proc: int, device=None):
+    """(devices, backend) of process `pid`: its mesh entries, the first
+    its hub (the process group's and phase B's gather device), and the
+    process group's backend.  Without a named device, entry k is card
+    (pid * devices_per_proc + k) modulo the card count (no card raises),
+    and the backend is nccl where no two processes' hubs coincide, else
+    gloo.  A named device holds every entry, over gloo."""
     import torch
-    if device.type == "cuda" and torch.cuda.device_count() >= nprocs:
-        return "nccl"
-    return "gloo"
+    if device is not None:
+        return [torch.device(device)] * devices_per_proc, "gloo"
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass --device "
+                           "cpu to run on the CPU")
+    count = torch.cuda.device_count()
+    first = pid * devices_per_proc
+    devices = [torch.device(f"cuda:{(first + k) % count}")
+               for k in range(devices_per_proc)]
+    hubs = {p * devices_per_proc % count for p in range(nprocs)}
+    return devices, "nccl" if len(hubs) == nprocs else "gloo"
 
 
 def _check(planes, want, what):
@@ -115,28 +130,21 @@ def worker(pid: int, nprocs: int, init_method: str, devices_per_proc: int,
     from datetime import timedelta
     import torch
     import torch.distributed as dist
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass --device "
-                               "cpu to run on the CPU")
-        device = f"cuda:{pid % torch.cuda.device_count()}"
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    backend = _backend(dev, nprocs)
+    devices, backend = placement(pid, nprocs, devices_per_proc, device)
+    if devices[0].type == "cuda":
+        torch.cuda.set_device(devices[0])     # before nccl's communicator
     t = time.time()
     dist.init_process_group(backend, init_method=init_method,
                             world_size=nprocs, rank=pid,
                             timeout=timedelta(seconds=PG_TIMEOUT_S))
     try:
-        _phases(pid, nprocs, dev, backend, devices_per_proc, clip_files,
-                out_dir, time.time() - t)
+        _phases(pid, nprocs, devices, backend, clip_files, out_dir,
+                time.time() - t)
     finally:
         dist.destroy_process_group()
 
 
-def _phases(pid, nprocs, dev, backend, devices_per_proc, clip_files,
-            out_dir, init_s):
+def _phases(pid, nprocs, devices, backend, clip_files, out_dir, init_s):
     import torch
     import torch.distributed as dist
     from ..models.h264.recon_np import reconstruct_frame
@@ -148,10 +156,12 @@ def _phases(pid, nprocs, dev, backend, devices_per_proc, clip_files,
     from .manifest import Manifest
     from .sharding import make_mesh
 
+    devices_per_proc, dev = len(devices), devices[0]
     n_dev = nprocs * devices_per_proc
     print(f"mh[{pid}]: {nprocs} processes x {devices_per_proc} mesh "
-          f"entries on {dev}, {n_dev} global, backend {backend} "
-          f"(init {init_s:.2f}s)", flush=True)
+          f"entries on {', '.join(map(str, devices))} (hub {dev}), "
+          f"{n_dev} global, backend {backend} (init {init_s:.2f}s)",
+          flush=True)
 
     if clip_files:
         clips = []
@@ -187,21 +197,24 @@ def _phases(pid, nprocs, dev, backend, devices_per_proc, clip_files,
         man.done(f"clip{ci}")
     man.close()
     planes_a = [np.zeros((0,), np.uint8)] * 3
-    launches = 0
+    launches, by_card = 0, {}
     if mine:
         _, sps, pps, _ = parsed[0]
         packed = pack_frames([(fs, som) for fs, _, _, som in parsed],
                              sps, pps)
-        mesh = make_mesh(devices=[dev] * devices_per_proc)
+        mesh = make_mesh(devices=devices)
         recon_fused.wave_kernel_cuda.launches = 0
+        recon_fused.wave_kernel_cuda.launches_by_device = {}
         planes_a = _Recon(mesh, "fused")(packed)[:3]
         launches = recon_fused.wave_kernel_cuda.launches
+        by_card = dict(sorted(
+            recon_fused.wave_kernel_cuda.launches_by_device.items()))
         for j, ci in enumerate(mine):
             _check([p[j] for p in planes_a], want(ci), f"A clip{ci}")
     print(f"mh[{pid}]: phase A OK — clips {mine} of {n_clips} parsed by "
           f"this process, reconstructed over {devices_per_proc} mesh "
-          f"entries on {dev}, wave_kernel launches {launches}, bit-exact "
-          f"({time.time() - t:.2f}s)", flush=True)
+          f"entries, wave_kernel launches {launches} by card {by_card}, "
+          f"bit-exact ({time.time() - t:.2f}s)", flush=True)
 
     # ---- metrics reduce: one all_reduce of the frame counts ------------
     t = time.time()
@@ -240,7 +253,7 @@ def _phases(pid, nprocs, dev, backend, devices_per_proc, clip_files,
 
     first = pid * devices_per_proc
     out_y, out_c = halo_loop(feeds, packed_b.ls4, packed_b.ls8, g, batch_b,
-                             [dev] * devices_per_proc, first=first,
+                             devices, first=first,
                              n_strips=n_dev, exchange=exchange,
                              has8x8=packed_b.has8x8,
                              haspcm=packed_b.haspcm)
@@ -259,7 +272,8 @@ def _phases(pid, nprocs, dev, backend, devices_per_proc, clip_files,
         _check([p[i] for p in planes_b], want(i % n_clips), f"B pic {i}")
     print(f"mh[{pid}]: phase B OK — halo lane axis (L={L}) over {n_dev} "
           f"strips spans {nprocs} processes, {n_ex[0]} per-wave edge "
-          f"all_reduces crossed the process boundary, bit-exact "
+          f"all_reduces crossed the process boundary, all_reduces this "
+          f"batch {n_ex[0] + 1} with the gather, bit-exact "
           f"x{batch_b} (loop {loop_s:.2f}s, with the gather "
           f"{halo_s:.2f}s, with the check {time.time() - t:.2f}s)",
           flush=True)

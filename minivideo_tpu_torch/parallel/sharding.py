@@ -100,33 +100,37 @@ def pad_to_multiple(arrays: dict, multiple: int):
     return out, b
 
 
+def shard_frames(arrays: dict, i: int, n: int, dev):
+    """Shard i of n of the frame arrays `arrays` as tensors on `dev`: the
+    contiguous run of frames that P(("data", "seq")) gives mesh entry i
+    in JAX.  A batch that is not a multiple of n comes out as
+    pad_to_multiple's would: the last shards end in zero frames, made on
+    `dev`, so the host copies no frame.  The copy waits for nothing but
+    itself, so each card's shard can be copied from its own thread."""
+    import torch
+    b = next(iter(arrays.values())).shape[0]
+    per = -(-b // n)
+    lo, hi = min(i * per, b), min((i + 1) * per, b)
+    arrs = {}
+    for k, v in arrays.items():
+        t = torch.as_tensor(v[lo:hi]).to(dev)
+        if hi - lo < per:
+            t = torch.cat([t, t.new_zeros((per - (hi - lo),)
+                                          + tuple(t.shape[1:]))])
+        arrs[k] = t
+    return arrs
+
+
 def shard_packed(mesh: Mesh, arrays: dict, ls4, ls8):
     """Place frame arrays and the replicated tables on the mesh.
 
     Returns one (arrays, ls4, ls8) per mesh entry, in the mesh's
-    row-major order: shard i * seq + j goes to mesh[i, j] and holds the
-    contiguous run of frames that P(("data", "seq")) gives that device in
-    JAX; its arrays are tensors on that entry's device, ls4 / ls8 the
-    replicated tables as numpy (the engines copy them to each device
-    once).  A batch that is not a multiple of the mesh size comes out as
-    pad_to_multiple's would: the last shards end in zero frames, made on
-    their devices, so the host copies no frame.  The JAX module's
-    `batch_sharding` / `replicated` descriptors have no counterpart: this
-    placement is the only reader they would have."""
-    import torch
+    row-major order: shard i * seq + j goes to mesh[i, j] (shard_frames);
+    ls4 / ls8 are the replicated tables as numpy (the engines copy them
+    to each device once).  The JAX module's `batch_sharding` /
+    `replicated` descriptors have no counterpart: this placement is the
+    only reader they would have."""
     devs = list(mesh.devices.reshape(-1))
-    b = next(iter(arrays.values())).shape[0]
-    per = -(-b // len(devs))
     ls4, ls8 = np.asarray(ls4), np.asarray(ls8)
-    shards = []
-    for i, dev in enumerate(devs):
-        lo, hi = min(i * per, b), min((i + 1) * per, b)
-        arrs = {}
-        for k, v in arrays.items():
-            t = torch.as_tensor(v[lo:hi]).to(dev)
-            if hi - lo < per:
-                t = torch.cat([t, t.new_zeros((per - (hi - lo),)
-                                              + tuple(t.shape[1:]))])
-            arrs[k] = t
-        shards.append((arrs, ls4, ls8))
-    return shards
+    return [(shard_frames(arrays, i, len(devs), dev), ls4, ls8)
+            for i, dev in enumerate(devs)]

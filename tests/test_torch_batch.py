@@ -301,3 +301,109 @@ def test_without_a_card_batch_and_thumbnailer_raise(clips, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["-i", clips[1], "-o", str(tmp_path / "t")])
     assert not list((tmp_path / "t").iterdir())
+
+
+def _fake_cards(monkeypatch, n):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+
+
+@pytest.mark.parametrize("n,want", [(1, [["cuda:0"]]),
+                                    (4, [["cuda:0", "cuda:1"],
+                                         ["cuda:2", "cuda:3"]])])
+def test_default_mesh_covers_every_card(tmp_path, monkeypatch, n, want):
+    """With no mesh and no device, batch_thumbnail runs over
+    make_mesh(): every card, as the JAX package's make_mesh() over every
+    device; one card gives a 1x1 mesh of cuda:0.  (Cards are faked: a
+    torch.device names a card without touching it, and no clip runs.)"""
+    from minivideo_tpu_torch.parallel import batch
+    _fake_cards(monkeypatch, n)
+    meshes = []
+
+    class Recon(batch._Recon):
+        def __init__(self, mesh, engine):
+            super().__init__(mesh, engine)
+            meshes.append(mesh)
+
+    monkeypatch.setattr(batch, "_Recon", Recon)
+    batch.batch_thumbnail([], str(tmp_path))
+    for mesh in (meshes[0], batch._mesh_of(None, None)):
+        assert mesh.axis_names == ("data", "seq")
+        assert [[str(d) for d in row] for row in mesh.devices] == want
+
+
+def test_named_device_is_a_one_entry_mesh(tmp_path, monkeypatch):
+    """A named device is a 1x1 mesh of it, whatever the card count; a
+    mesh and a device together raise."""
+    from minivideo_tpu_torch.parallel import batch, make_mesh
+    _fake_cards(monkeypatch, 4)
+    for name in ("cpu", "cuda:3"):
+        mesh = batch._mesh_of(None, name)
+        assert [[str(d) for d in row] for row in mesh.devices] == [[name]]
+    with pytest.raises(ValueError, match="not both"):
+        batch._mesh_of(make_mesh(devices=["cpu"] * 4), "cpu")
+
+
+def test_mesh_launches_every_shard_before_one_check(clips, runs, tmp_path):
+    """Over a 2x2 mesh the fused engine runs every shard unchecked
+    (check=False), then one check_waits() before the readback, per
+    bucket; the files and bucket planes are still the JAX package's."""
+    from minivideo_tpu_torch.codecs import PictureFormat
+    from minivideo_tpu_torch.ops import recon_fused
+    from minivideo_tpu_torch.parallel import batch, make_mesh
+    jax_dir, _, _, jax_planes = runs("device")["jax"]
+    events, planes = [], []
+    fused, check_waits = (recon_fused.reconstruct_frames_fused,
+                          recon_fused.check_waits)
+    real = batch._Recon.__call__
+
+    def spy_fused(packed, device=None, check=True):
+        events.append(("launch", check))
+        return fused(packed, device, check=check)
+
+    def spy_check(*words):
+        events.append(("check", None))
+        return check_waits(*words)
+
+    def recon(self, packed, **k):
+        out = real(self, packed, **k)
+        planes.append([np.asarray(a) for a in out[:3]])
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MINIVIDEO_TPU_STAGING", "device")
+        mp.setattr(recon_fused, "reconstruct_frames_fused", spy_fused)
+        mp.setattr(recon_fused, "check_waits", spy_check)
+        mp.setattr(batch._Recon, "__call__", recon)
+        out = str(tmp_path / "mesh")
+        batch.batch_thumbnail(clips, out, pictures_per_clip=2,
+                              mesh=make_mesh(devices=["cpu"] * 4),
+                              fmt=PictureFormat.PNG)
+    assert events == ([("launch", False)] * 4 + [("check", None)]) * 2
+    _same_files(out, jax_dir)
+    assert len(planes) == len(jax_planes) == 2
+    for got, want in zip(planes, jax_planes):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_launch_counts_read_zero_after_a_cpu_run():
+    """The wave kernel's launch count and its per-card dict read 0 and
+    {} after the fused engine ran on the CPU (its plain loop) over a
+    mesh of two entries, whose planes equal one device's."""
+    from minivideo_tpu_torch.models.h264.decoder import (decode_annexb,
+                                                         stage_annexb)
+    from minivideo_tpu_torch.ops import recon_fused
+    from minivideo_tpu_torch.parallel import make_mesh
+    from minivideo_tpu_torch.parallel.batch import _Recon
+    data = make_stream(width_mbs=4, height_mbs=3, seed=64, **KW)
+    (_, packed), = stage_annexb(data, "cpu")
+    recon_fused.wave_kernel_cuda.launches = 0
+    recon_fused.wave_kernel_cuda.launches_by_device = {}
+    got = _Recon(make_mesh(devices=["cpu"] * 2), "fused")(packed)
+    assert recon_fused.wave_kernel_cuda.launches == 0
+    assert recon_fused.wave_kernel_cuda.launches_by_device == {}
+    for i, pic in enumerate(decode_annexb(data, device="cpu")):
+        for a, b in zip(got, (pic.y, pic.cb, pic.cr)):
+            np.testing.assert_array_equal(a[i], b)

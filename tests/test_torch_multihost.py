@@ -139,3 +139,33 @@ def test_failed_worker_stops_the_run(tmp_path):
                              device="cpu",
                              clip_files=[str(tmp_path / "missing.264")])
     assert time.time() - t < PG_TIMEOUT_S
+
+
+@pytest.mark.parametrize("count", [1, 2, 4, 8])
+def test_placement_is_the_jax_reshape_order(count, monkeypatch):
+    """Process p's mesh entries are the cards of row p of the JAX
+    worker's Mesh(np.array(jax.devices()).reshape(nprocs, dpp)), modulo
+    the card count, its hub the first; nccl only where no two processes'
+    hubs are one card (NCCL refuses two ranks on one GPU), gloo else and
+    for a named device.  (Cards are faked: a torch.device names a card
+    without touching it.)"""
+    import jax
+    import torch
+    from minivideo_tpu_torch.parallel.multihost import placement
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    for nprocs in (1, 2, 4, 8):
+        for dpp in (1, 2, 4):
+            if nprocs * dpp > len(jax.devices()):
+                continue
+            order = np.array(jax.devices()[:nprocs * dpp]).reshape(
+                nprocs, dpp)
+            got = [placement(p, nprocs, dpp) for p in range(nprocs)]
+            hubs = [devs[0] for devs, _ in got]
+            for p, (devs, backend) in enumerate(got):
+                assert [str(d) for d in devs] == \
+                    [f"cuda:{d.id % count}" for d in order[p]]
+                assert backend == ("nccl" if len(set(hubs)) == nprocs
+                                   else "gloo"), (nprocs, dpp)
+    devs, backend = placement(1, 2, 2, device="cpu")
+    assert [str(d) for d in devs] == ["cpu", "cpu"] and backend == "gloo"

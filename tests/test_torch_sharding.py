@@ -169,9 +169,9 @@ def _run(pkg, clips, outdir, env, **kw):
         else:
             fused = recon_fused.reconstruct_frames_fused
 
-            def counted(packed, device=None):
+            def counted(packed, device=None, **kw):
                 calls[-1] += 1
-                return fused(packed, device)
+                return fused(packed, device, **kw)
 
             mp.setattr(recon_fused, "reconstruct_frames_fused", counted)
         res = batch.batch_thumbnail(clips, outdir, pictures_per_clip=2,
