@@ -395,11 +395,27 @@ def staged(stream, device, pool=None, mode="device"):
     """decode_annexb's front half for a one-part stream in staging layout
     `mode` (None: the one settings.staging_mode() picks): (PackedFrames
     on `device`, its device-layout staging tensors where mode is
-    "device", host-clock seconds of each step)."""
+    "device", host-clock seconds of each step: "nalu" and "parse" from
+    the program's spans decode.nalu and decode.parse, recorded under a
+    CPU torch.profiler session, and "h2d" from the start of its span
+    decode.stage to the end of a synchronize after it, so the copy is
+    done)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from minivideo_tpu_torch import profiling
     from minivideo_tpu_torch.models.h264.decoder import stage_annexb
     from minivideo_tpu_torch.ops.recon_fused import DEVICE_STAGING
+    with profile(activities=[ProfilerActivity.CPU]):
+        (_, packed), = stage_annexb(stream, device, pool, mode)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        done = time.perf_counter_ns()
     secs = {}
-    (_, packed), = stage_annexb(stream, device, pool, secs, mode)
+    for r in profiling.last_session():
+        if r.name in ("decode.nalu", "decode.parse"):
+            secs[r.name[len("decode."):]] = r.ms / 1e3
+        elif r.name == "decode.stage":
+            secs["h2d"] = (done - r.start_ns) / 1e9
     arrs = ([packed.arrays[k] for k in DEVICE_STAGING]
             if packed.slots == 2 else None)
     return packed, arrs, secs

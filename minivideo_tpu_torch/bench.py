@@ -93,7 +93,7 @@ from .models.h264.syntax import FrameSyntax
 from .ops import recon_fused as rf
 from .ops.recon import (make_slab_staging, make_slab_staging2,
                         pack_frames_slots, pack_frames_slots2)
-from .profiling import device_trace
+from .profiling import begin, carry, device_trace, span
 from .settings import staging_mode
 from .testing import x264
 from .testing.h264enc2 import make_stream2
@@ -260,16 +260,18 @@ def parse_slice_task(arg):
     staging, row, fs, som, snum, nalu, sh, pps, mode = arg
     cabac = bool(pps.entropy_coding_mode_flag)
     t8 = bool(pps.transform_8x8_mode_flag)
-    if mode == "device":
-        n = native.parse_slice_native_slab2(
-            fs, staging, row, nalu.rbsp, sh.data_bit_offset,
-            sh.first_mb_in_slice, sh.qp, cabac, t8,
-            cb_qp_off=pps.chroma_qp_index_offset,
-            cr_qp_off=pps.second_chroma_qp_index_offset)
-    else:
-        n = native.parse_slice_native_slab(
-            fs, staging, row, nalu.rbsp, sh.data_bit_offset,
-            sh.first_mb_in_slice, sh.qp, cabac, t8)
+    with span("bench.parse_slice", int(sh.first_mb_in_slice == 0),
+              nbytes=len(nalu.rbsp)):
+        if mode == "device":
+            n = native.parse_slice_native_slab2(
+                fs, staging, row, nalu.rbsp, sh.data_bit_offset,
+                sh.first_mb_in_slice, sh.qp, cabac, t8,
+                cb_qp_off=pps.chroma_qp_index_offset,
+                cr_qp_off=pps.second_chroma_qp_index_offset)
+        else:
+            n = native.parse_slice_native_slab(
+                fs, staging, row, nalu.rbsp, sh.data_bit_offset,
+                sh.first_mb_in_slice, sh.qp, cabac, t8)
     som[sh.first_mb_in_slice:sh.first_mb_in_slice + n] = snum
 
 
@@ -318,22 +320,30 @@ def host_stream(pictures, sps, pps, pool, mode, iters, batch, consume=None,
     and batch N packed while the pool parses batch N+1.  With `ring`
     (a StagingRing) every batch parses into `ring.acquire(stop)`;
     `consume(pack, slot)` gets each pack with its ring slot (None
-    without a ring), and whoever holds the slot releases it."""
+    without a ring), and whoever holds the slot releases it.  Each
+    batch's slice tasks run under its "bench.parse_batch" span."""
     def next_batch():
         slot = ring.acquire(stop) if ring is not None else None
         return (slot, *make_batch(pictures, sps, pps, mode, batch,
                                   slot.staging if slot else None))
 
+    def submit(tasks):
+        b = begin("bench.parse_batch", batch)
+        task = carry(parse_slice_task, b)
+        return b, [pool.submit(task, t) for t in tasks]
+
     slot, staging, frames, tasks = next_batch()
-    futs = [pool.submit(parse_slice_task, t) for t in tasks]
+    parse, futs = submit(tasks)
     for i in range(iters):
         if i + 1 < iters:
             slot2, staging2, frames2, tasks2 = next_batch()
         for f in futs:
             f.result()
+        parse.end()
         if i + 1 < iters:
-            futs = [pool.submit(parse_slice_task, t) for t in tasks2]
-        pk = pack_batch(staging, frames, sps, pps, mode)
+            parse, futs = submit(tasks2)
+        with span("bench.pack", batch):
+            pk = pack_batch(staging, frames, sps, pps, mode)
         if consume is not None:
             consume(pk, slot)
         if i + 1 < iters:
@@ -399,21 +409,23 @@ class StagingRing:
             self._free.put(s)
 
     def acquire(self, stop=None) -> Slot:
-        while True:
-            try:
-                slot = self._free.get(timeout=0.1)
-                break
-            except queue.Empty:
-                if stop is not None and stop.is_set():
-                    raise RuntimeError("pipeline stopped") from None
-        if slot.copied is not None:
-            slot.copied.synchronize()
-        if slot.dirty:
-            t0 = time.perf_counter()
-            for t in slot.host.values():
-                _memset0(t)
-            self.clear_s.append(time.perf_counter() - t0)
-        slot.dirty = True
+        with span("bench.ring_acquire"):
+            while True:
+                try:
+                    slot = self._free.get(timeout=0.1)
+                    break
+                except queue.Empty:
+                    if stop is not None and stop.is_set():
+                        raise RuntimeError("pipeline stopped") from None
+            if slot.copied is not None:
+                slot.copied.synchronize()
+            if slot.dirty:
+                with span("bench.ring_clear", nbytes=self.nbytes):
+                    t0 = time.perf_counter()
+                    for t in slot.host.values():
+                        _memset0(t)
+                    self.clear_s.append(time.perf_counter() - t0)
+            slot.dirty = True
         return slot
 
     def release(self, slot: Slot):
@@ -658,10 +670,12 @@ class Bench:
         return out
 
     def _finish(self, i, out, consume):
-        if out.ready is not None:
-            out.ready.synchronize()
+        with span("bench.wait_card"):
+            if out.ready is not None:
+                out.ready.synchronize()
         if consume is not None:
-            out.futures = list(consume(i, out.arrays()) or ())
+            with span("bench.consume", self.batch):
+                out.futures = list(consume(i, out.arrays()) or ())
 
     def overlapped(self, prep, consume=None):
         """One run of the pipeline over `iters` batches of prep =
@@ -686,10 +700,12 @@ class Bench:
         try:
             pending = []
             for i in range(self.iters):
-                pk, slot = packs.get()
+                with span("bench.wait_host"):
+                    pk, slot = packs.get()
                 if isinstance(pk, BaseException):
                     raise pk
-                pending.append((i, self._enqueue(pk, slot, i)))
+                with span("bench.enqueue", self.batch):
+                    pending.append((i, self._enqueue(pk, slot, i)))
                 if len(pending) > 1:
                     self._finish(*pending.pop(0), consume)
             while pending:

@@ -25,6 +25,7 @@ import numpy as np
 
 from ..codecs import PictureFormat
 from .. import trace
+from ..profiling import span
 
 
 def _native():
@@ -416,18 +417,20 @@ def export_picture(path_base: str, fmt: PictureFormat, y, cb, cr,
     the decode (ops/color.py via mv_decode(want_rgb=True)); when absent
     the RGB formats convert here (native C fast path)."""
     path = f"{path_base}.{_EXT[fmt]}"
-    if fmt == PictureFormat.YUV420:
-        write_yuv420(path, y, cb, cr)
-    elif fmt == PictureFormat.YUV444:
-        write_yuv444(path, y, cb, cr)
-    elif fmt in (PictureFormat.BMP, PictureFormat.TGA, PictureFormat.PNG):
-        if rgb is None:
-            rgb = yuv420_to_rgb(y, cb, cr)
-        {PictureFormat.BMP: write_bmp, PictureFormat.TGA: write_tga,
-         PictureFormat.PNG: write_png}[fmt](path, rgb)
-    elif fmt == PictureFormat.JPG:
-        write_jpeg(path, y, cb, cr, quality)
-    else:
-        raise ValueError(f"unsupported picture format {fmt}")
+    with span("export.picture", 1):
+        if fmt == PictureFormat.YUV420:
+            write_yuv420(path, y, cb, cr)
+        elif fmt == PictureFormat.YUV444:
+            write_yuv444(path, y, cb, cr)
+        elif fmt in (PictureFormat.BMP, PictureFormat.TGA,
+                     PictureFormat.PNG):
+            if rgb is None:
+                rgb = yuv420_to_rgb(y, cb, cr)
+            {PictureFormat.BMP: write_bmp, PictureFormat.TGA: write_tga,
+             PictureFormat.PNG: write_png}[fmt](path, rgb)
+        elif fmt == PictureFormat.JPG:
+            write_jpeg(path, y, cb, cr, quality)
+        else:
+            raise ValueError(f"unsupported picture format {fmt}")
     trace.info("EXPORT", "wrote %s", path)
     return path

@@ -28,12 +28,10 @@ tolerance for per-NALU errors.
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from ... import trace
 from ...bitio import BitReader, BitstreamError
@@ -45,6 +43,7 @@ from ...ops.recon import (make_slab_staging, make_slab_staging2,
 from ...ops.color import yuv420_to_rgb_device
 from ...ops.recon_fused import reconstruct_frames_fused, to_device
 from ...ops.recon_wave import reconstruct_frames_wave
+from ...profiling import span
 from ...settings import ENGINES, staging_mode as _staging_mode
 from .cabac import CabacSliceParser
 from .expgolomb import read_ue
@@ -243,32 +242,26 @@ class H264Decoder:
             return pack_frames_slots2(staging, sps, pps), frames
         return pack_frames_slots(staging, frames, sps, pps), frames
 
-    def stage_groups(self, groups, sps, pps, pool=None, timings=None,
+    def stage_groups(self, groups, sps, pps, pool=None,
                      staging_mode=None):
         """Parse pictures sharing sps/pps into staging and copy it to the
         decoder's device.  `staging_mode`: "records" or "device" (slab
         staging, parse_groups_slab; default settings.staging_mode()), or
         "raster" (parse_idr_syntax per picture, then pack_frames).
         Returns (parsed_groups, PackedFrames with its arrays as tensors
-        there), the arguments of reconstruct_batch.  `timings` (optional
-        dict) receives the host seconds of "parse" and "h2d"."""
-        t = time.perf_counter()
-        if staging_mode == "raster":
-            parsed = [self.parse_idr_syntax(g) for g in groups]
-            packed = pack_frames([(fs, som) for fs, _, _, som in parsed],
-                                 sps, pps)
-        else:
-            packed, frames = self.parse_groups_slab(groups, sps, pps,
-                                                    staging_mode, pool)
-            parsed = [(fs, sps, pps, som) for fs, som in frames]
-        t1 = time.perf_counter()
-        packed = to_device(packed, self.device)
-        if timings is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            timings["parse"] = t1 - t
-            timings["h2d"] = time.perf_counter() - t1
-        return parsed, packed
+        there), the arguments of reconstruct_batch.  Spans
+        "decode.parse" and "decode.stage" (the copy, enqueued)."""
+        with span("decode.parse", len(groups)):
+            if staging_mode == "raster":
+                parsed = [self.parse_idr_syntax(g) for g in groups]
+                packed = pack_frames([(fs, som) for fs, _, _, som in parsed],
+                                     sps, pps)
+            else:
+                packed, frames = self.parse_groups_slab(groups, sps, pps,
+                                                        staging_mode, pool)
+                parsed = [(fs, sps, pps, som) for fs, som in frames]
+        with span("decode.stage", len(groups)):
+            return parsed, to_device(packed, self.device)
 
     def reconstruct_batch(self, parsed_groups, packed=None):
         """Reconstruct MANY parsed pictures in one engine batch on the
@@ -284,6 +277,8 @@ class H264Decoder:
             packed = pack_frames([(fs, som) for fs, _, _, som
                                   in parsed_groups], sps, pps)
         if self.engine == "fused":
+            with span("decode.stage", len(parsed_groups)):
+                packed = to_device(packed, self.device)
             planes = reconstruct_frames_fused(packed, self.device)
         else:
             planes = reconstruct_frames_wave(packed, self.device)
@@ -377,31 +372,32 @@ def _decode_batched_parts(dec, parts, pictures, pool, use_slab, errors):
     errors (reference: h264.c:181-187).  Only the host parse is inside a
     `try`: the staging copy and the reconstruction raise."""
     for sps, pps, groups in parts:
-        packed = None
-        parsed = None
-        if use_slab:
-            try:
-                packed, frames = dec.parse_groups_slab(groups, sps, pps,
-                                                       pool=pool)
-                parsed = [(fs, sps, pps, som) for fs, som in frames]
-            except (RuntimeError, ValueError, BitstreamError) as e:
-                trace.warning("H264", "slab parse failed (%s); "
-                              "falling back to raster", e)
-                packed = None
-        if packed is None:
-            parsed = []
-            for group in groups:
+        with span("decode.parse", len(groups)):
+            packed = None
+            parsed = None
+            if use_slab:
                 try:
-                    parsed.append(dec.parse_idr_syntax(group))
-                except UnsupportedStream:
-                    raise
-                except (ValueError, BitstreamError) as e:
-                    trace.warning("H264", "IDR parse error: %s", e)
-                    errors += 1
-                    if errors > MAX_CONSECUTIVE_ERRORS:
-                        break
-            if not parsed:
-                continue
+                    packed, frames = dec.parse_groups_slab(groups, sps, pps,
+                                                           pool=pool)
+                    parsed = [(fs, sps, pps, som) for fs, som in frames]
+                except (RuntimeError, ValueError, BitstreamError) as e:
+                    trace.warning("H264", "slab parse failed (%s); "
+                                  "falling back to raster", e)
+                    packed = None
+            if packed is None:
+                parsed = []
+                for group in groups:
+                    try:
+                        parsed.append(dec.parse_idr_syntax(group))
+                    except UnsupportedStream:
+                        raise
+                    except (ValueError, BitstreamError) as e:
+                        trace.warning("H264", "IDR parse error: %s", e)
+                        errors += 1
+                        if errors > MAX_CONSECUTIVE_ERRORS:
+                            break
+                if not parsed:
+                    continue
         pictures.extend(dec.reconstruct_batch(parsed, packed=packed))
 
 
@@ -428,50 +424,45 @@ def _open_stream(data: bytes, engine: str, device, want_rgb=False):
     SEI) to a new decoder and group the IDR slices into pictures.
     Returns (decoder, picture groups, error count); tolerates per-NALU
     errors as the reference's h264_decode() main loop (h264.c:76-188)."""
-    dec = H264Decoder(engine=engine, device=device, want_rgb=want_rgb)
-    errors = 0
-    nalus = []
-    for off, raw in split_annexb(data):
-        try:
-            nalus.append(parse_nalu(raw, off))
-        except (ValueError, BitstreamError) as e:
-            trace.warning("NALU", "bad NALU at %d: %s", off, e)
-            errors += 1
-            if errors > MAX_CONSECUTIVE_ERRORS:
-                break
-    idr_groups = group_idr_access_units(nalus)
-    for n in nalus:
-        if n.nal_unit_type == NaluType.SLICE_IDR:
-            continue
-        try:
-            dec.feed_nalu(n)
-        except UnsupportedStream:
-            raise
-        except (ValueError, BitstreamError) as e:
-            trace.warning("H264", "NALU decode error: %s", e)
-            errors += 1
-            if errors > MAX_CONSECUTIVE_ERRORS:
-                break
+    with span("decode.nalu", nbytes=len(data)):
+        dec = H264Decoder(engine=engine, device=device, want_rgb=want_rgb)
+        errors = 0
+        nalus = []
+        for off, raw in split_annexb(data):
+            try:
+                nalus.append(parse_nalu(raw, off))
+            except (ValueError, BitstreamError) as e:
+                trace.warning("NALU", "bad NALU at %d: %s", off, e)
+                errors += 1
+                if errors > MAX_CONSECUTIVE_ERRORS:
+                    break
+        idr_groups = group_idr_access_units(nalus)
+        for n in nalus:
+            if n.nal_unit_type == NaluType.SLICE_IDR:
+                continue
+            try:
+                dec.feed_nalu(n)
+            except UnsupportedStream:
+                raise
+            except (ValueError, BitstreamError) as e:
+                trace.warning("H264", "NALU decode error: %s", e)
+                errors += 1
+                if errors > MAX_CONSECUTIVE_ERRORS:
+                    break
     return dec, idr_groups, errors
 
 
-def stage_annexb(data: bytes, device=None, pool=None, timings=None,
-                 staging_mode=None):
+def stage_annexb(data: bytes, device=None, pool=None, staging_mode=None):
     """The front half of decode_annexb: every IDR picture of `data`
     parsed into staging (`staging_mode`, see H264Decoder.stage_groups) on
     `device`, one batch per (SPS, PPS) part.
     Returns [(parsed_groups, PackedFrames), ...], the arguments of
-    H264Decoder.reconstruct_batch, the back half.  `timings` (optional
-    dict) receives the host seconds of "nalu" and, for the last part,
-    "parse" and "h2d".  Staging does not depend on RGB output: pass
-    want_rgb to the H264Decoder whose reconstruct_batch runs the back
-    half."""
-    t = time.perf_counter()
+    H264Decoder.reconstruct_batch, the back half.  Staging does not
+    depend on RGB output: pass want_rgb to the H264Decoder whose
+    reconstruct_batch runs the back half."""
     dec, groups, errors = _open_stream(data, "fused", device)
     parts, _ = _partition(dec, iter(groups), 0, errors)
-    if timings is not None:
-        timings["nalu"] = time.perf_counter() - t
-    return [dec.stage_groups(g, sps, pps, pool, timings, staging_mode)
+    return [dec.stage_groups(g, sps, pps, pool, staging_mode)
             for sps, pps, g in parts]
 
 

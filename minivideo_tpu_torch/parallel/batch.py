@@ -58,6 +58,7 @@ import numpy as np
 
 from .. import trace
 from ..codecs import PictureFormat, PictureRepartition
+from ..profiling import carry, span
 from .manifest import Manifest
 from .sharding import Mesh, make_mesh, shard_frames
 
@@ -158,12 +159,13 @@ def _parse_clip(path: str, pictures: int, mode, device) -> ParsedClip:
     """Demux + entropy-parse one clip's selected IDR pictures (host;
     raster path — the wave and np engines' and the
     MINIVIDEO_TPU_NO_NATIVE=1 route)."""
-    dec, groups, file_name = _demux_groups(path, pictures, mode, device)
-    frames = []
-    sps = pps = None
-    for group in groups:
-        fs, sps, pps, som = dec.parse_idr_syntax(group)
-        frames.append((fs, som))
+    with span("batch.demux_file", 1):
+        dec, groups, file_name = _demux_groups(path, pictures, mode, device)
+        frames = []
+        sps = pps = None
+        for group in groups:
+            fs, sps, pps, som = dec.parse_idr_syntax(group)
+            frames.append((fs, som))
     return ParsedClip(path, frames, sps, pps, file_name)
 
 
@@ -171,17 +173,18 @@ def _demux_clip(path: str, pictures: int, mode, device) -> DemuxedClip:
     """Demux one clip + parse its slice headers (no entropy decode —
     that happens bucket-wide, straight into slab staging)."""
     from ..models.h264.slicehdr import parse_slice_header
-    dec, groups, file_name = _demux_groups(path, pictures, mode, device)
-    pics = []
-    sps = pps = None
-    for group in groups:
-        pic = []
-        for nalu in group:
-            sh, sps, pps = parse_slice_header(
-                nalu.rbsp, nalu.nal_unit_type, nalu.nal_ref_idc,
-                dec.sps_map, dec.pps_map)
-            pic.append((nalu, sh))
-        pics.append(pic)
+    with span("batch.demux_file", 1):
+        dec, groups, file_name = _demux_groups(path, pictures, mode, device)
+        pics = []
+        sps = pps = None
+        for group in groups:
+            pic = []
+            for nalu in group:
+                sh, sps, pps = parse_slice_header(
+                    nalu.rbsp, nalu.nal_unit_type, nalu.nal_ref_idc,
+                    dec.sps_map, dec.pps_map)
+                pic.append((nalu, sh))
+            pics.append(pic)
     return DemuxedClip(path, pics, sps, pps, file_name)
 
 
@@ -211,23 +214,26 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
     def parse_frame(i):
         dc, fi = rows[i]
         pps = dc.pps
-        for nalu, sh in dc.pictures[fi]:
-            if staging_mode == "device":
-                parse_slice_native_slab2(
-                    fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
-                    sh.first_mb_in_slice, sh.qp,
-                    bool(pps.entropy_coding_mode_flag),
-                    bool(pps.transform_8x8_mode_flag),
-                    cb_qp_off=pps.chroma_qp_index_offset,
-                    cr_qp_off=pps.second_chroma_qp_index_offset)
-            else:
-                parse_slice_native_slab(
-                    fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
-                    sh.first_mb_in_slice, sh.qp,
-                    bool(pps.entropy_coding_mode_flag),
-                    bool(pps.transform_8x8_mode_flag))
+        with span("batch.parse_picture", 1, nbytes=sum(
+                len(nalu.rbsp) for nalu, _ in dc.pictures[fi])):
+            for nalu, sh in dc.pictures[fi]:
+                if staging_mode == "device":
+                    parse_slice_native_slab2(
+                        fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
+                        sh.first_mb_in_slice, sh.qp,
+                        bool(pps.entropy_coding_mode_flag),
+                        bool(pps.transform_8x8_mode_flag),
+                        cb_qp_off=pps.chroma_qp_index_offset,
+                        cr_qp_off=pps.second_chroma_qp_index_offset)
+                else:
+                    parse_slice_native_slab(
+                        fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
+                        sh.first_mb_in_slice, sh.qp,
+                        bool(pps.entropy_coding_mode_flag),
+                        bool(pps.transform_8x8_mode_flag))
 
-    futs = {pool.submit(parse_frame, i): i for i in range(B)}
+    task = carry(parse_frame)
+    futs = {pool.submit(task, i): i for i in range(B)}
     for fut, i in futs.items():
         try:
             fut.result()
@@ -293,23 +299,27 @@ class _Recon:
         by_dev: dict = {}
         for i, d in enumerate(devs):
             by_dev.setdefault(d, []).append(i)
-        with ThreadPoolExecutor(max_workers=len(by_dev)) as pool:
+        with span("batch.stage", packed.batch), \
+                ThreadPoolExecutor(max_workers=len(by_dev)) as pool:
             for fut in [pool.submit(stage, e) for e in by_dev.values()]:
                 fut.result()
         outs = []
-        for arrs, dev in zip(shards, devs):
-            shard = dataclasses.replace(packed, arrays=arrs)
-            shard.__dict__["haspcm"] = packed.haspcm   # the batch's flag
-            planes = (recon_fused.reconstruct_frames_fused(
-                shard, dev, check=False) if fused
-                else reconstruct_frames_wave(shard, dev))
-            rgb = yuv420_to_rgb_device(*planes) if want_rgb else None
-            outs.append((*planes, rgb))
-        if fused:
-            recon_fused.check_waits()
-        host = [[p.cpu().numpy() for p in out if p is not None]
-                for out in outs]
-        cols = [np.concatenate(c)[:packed.batch] for c in zip(*host)]
+        with span("batch.launch", packed.batch):
+            for arrs, dev in zip(shards, devs):
+                shard = dataclasses.replace(packed, arrays=arrs)
+                shard.__dict__["haspcm"] = packed.haspcm  # the batch's flag
+                planes = (recon_fused.reconstruct_frames_fused(
+                    shard, dev, check=False) if fused
+                    else reconstruct_frames_wave(shard, dev))
+                rgb = yuv420_to_rgb_device(*planes) if want_rgb else None
+                outs.append((*planes, rgb))
+        # the kernels' waits, the blocking copies back, one array a plane
+        with span("batch.readback", packed.batch):
+            if fused:
+                recon_fused.check_waits()
+            host = [[p.cpu().numpy() for p in out if p is not None]
+                    for out in outs]
+            cols = [np.concatenate(c)[:packed.batch] for c in zip(*host)]
         return (*cols[:3], cols[3] if want_rgb else None)
 
 
@@ -389,15 +399,16 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
                 and os.environ.get("MINIVIDEO_TPU_NO_NATIVE") != "1")
 
     with Manifest(manifest_path) as man:
-        todo = man.pending(my_clips)
+        with span("batch.manifest", len(my_clips)):
+            todo = man.pending(my_clips)
         result.skipped = len(my_clips) - len(todo)
 
         pool = ThreadPoolExecutor(max_workers=parse_workers)
 
         # ---- stage 1: parallel host demux (failure-isolated) -------------
         parsed: list = []
-        stage1 = _demux_clip if use_slab else _parse_clip
-        with timer.stage("parse", len(todo)):
+        with timer.stage("parse", len(todo), "batch.demux"):
+            stage1 = carry(_demux_clip if use_slab else _parse_clip)
             futs = {pool.submit(stage1, c, pictures_per_clip, mode,
                                 device): c
                     for c in todo}
@@ -435,7 +446,8 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
             if use_slab:
                 from ..settings import staging_mode as _staging_mode
                 with timer.stage("entropy",
-                                 sum(len(pc.pictures) for pc in pcs)):
+                                 sum(len(pc.pictures) for pc in pcs),
+                                 "batch.entropy"):
                     packed, owners, bad = _parse_bucket_slab(
                         pcs, pool, _staging_mode())
                 for path, err in bad.items():
@@ -461,7 +473,8 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
             # as mv_decode(want_rgb=True)
             want_rgb = recon.engine != "np" and fmt in _RGB_FORMATS
             try:
-                with timer.stage("recon", n_frames), device_trace():
+                with timer.stage("recon", n_frames, "batch.recon"), \
+                        device_trace():
                     ys, cbs, crs, rgbs = recon(packed, want_rgb=want_rgb)
             except Exception as e:             # noqa: BLE001 — isolation
                 for pc in pcs:
@@ -498,15 +511,16 @@ def batch_thumbnail(clips, outdir, *, pictures_per_clip: int = 1,
                                                quality, rgb=rgb))
                 return pc.path, outs
 
+            task = carry(export_clip)
             for items in per_clip.values():
-                pending_exports.append(export_pool.submit(export_clip,
-                                                          items))
+                pending_exports.append(export_pool.submit(task, items))
 
-        with timer.stage("export", len(pending_exports)):
+        with timer.stage("export", len(pending_exports), "batch.export"):
             for fut in pending_exports:
                 try:
                     path, outs = fut.result()
-                    man.done(path, outputs=outs)
+                    with span("batch.manifest", 1):
+                        man.done(path, outputs=outs)
                     result.done += 1
                     result.outputs.extend(outs)
                 except Exception as e:         # noqa: BLE001 — isolation

@@ -40,7 +40,7 @@ MODULES = (
     "MAIN", "BITS", "IO", "PROBE", "DEMUX", "MP4", "AVI", "RIFF", "WAVE",
     "MKV", "MP3", "PS", "PES", "TS", "ES", "FILTER", "H264", "NALU",
     "PARAM", "SLICE", "MB", "CAVLC", "CABAC", "INTRA", "TRANS", "SPATIAL",
-    "EXPORT", "MUXER", "OPS", "MESH",
+    "EXPORT", "MUXER", "OPS", "MESH", "PARALLEL",
 )
 
 
