@@ -22,7 +22,10 @@ Phases, each printing one line with its seconds:
                   (one MB wide, one row, right edges, a 1080p-wide strip
                   of 3 slices, a batch of 1,200 with more rows than can be
                   resident), then the 1080p batch, run 5 more times with
-                  identical planes.
+                  identical planes; the records' layout kernel
+                  (csrc/wave_layout_kernel.cu) against its plain gather
+                  on the 1080p batch and on its first picture, every
+                  element of the four feeds.
   5. interleave - the interleave kernel against its plain version and
                   the library call (permute().contiguous()) on 1080p
                   tiles of a batch of 16 (identical bytes).
@@ -32,7 +35,9 @@ Phases, each printing one line with its seconds:
                   same stream, with one wave-kernel launch for the batch;
                   then tiles_to_raster_cuda() once, one launch.
   7. timing     - per 1080p batch of 16: CUDA-event time over
-                  back-to-back calls of both kernels, of the interleave
+                  back-to-back calls of the three kernels (the layout
+                  kernel's plain gather too, and both at B = 1), of the
+                  interleave
                   kernel's plain version and library call (the wave
                   kernel's plain loop, seconds a run, is timed once in
                   phase 4), and
@@ -394,8 +399,8 @@ def profiled_kernel_ms(fn, name):
 def staged(stream, device, pool=None, mode="device"):
     """decode_annexb's front half for a one-part stream in staging layout
     `mode` (None: the one settings.staging_mode() picks): (PackedFrames
-    on `device`, its device-layout staging tensors where mode is
-    "device", host-clock seconds of each step: "nalu" and "parse" from
+    on `device`, the kernel's feeds laid out from its records where mode
+    is "device", host-clock seconds of each step: "nalu" and "parse" from
     the program's spans decode.nalu and decode.parse, recorded under a
     CPU torch.profiler session, and "h2d" from the start of its span
     decode.stage to the end of a synchronize after it, so the copy is
@@ -404,7 +409,7 @@ def staged(stream, device, pool=None, mode="device"):
     from torch.profiler import ProfilerActivity, profile
     from minivideo_tpu_torch import profiling
     from minivideo_tpu_torch.models.h264.decoder import stage_annexb
-    from minivideo_tpu_torch.ops.recon_fused import DEVICE_STAGING
+    from minivideo_tpu_torch.ops.recon_fused import device_feeds
     with profile(activities=[ProfilerActivity.CPU]):
         (_, packed), = stage_annexb(stream, device, pool, mode)
         if torch.device(device).type == "cuda":
@@ -416,7 +421,7 @@ def staged(stream, device, pool=None, mode="device"):
             secs[r.name[len("decode."):]] = r.ms / 1e3
         elif r.name == "decode.stage":
             secs["h2d"] = (done - r.start_ns) / 1e9
-    arrs = ([packed.arrays[k] for k in DEVICE_STAGING]
+    arrs = (device_feeds(packed.arrays, packed.wmb, packed.hmb)
             if packed.slots == 2 else None)
     return packed, arrs, secs
 
@@ -485,10 +490,12 @@ def wave_kernel_bytes(packed):
     """Bytes the wave kernel must move for `packed`'s batch: each input
     it reads once (meta, the coefficients of parsed MBs, the scale and
     tap tables), each output written once."""
+    from minivideo_tpu_torch.ops.recon_fused import device_feeds
     from minivideo_tpu_torch.ops.recon_wave import TAP_ROWS4, TAP_ROWS8
     from minivideo_tpu_torch.ops.slab import R_PARSED
     n_mbs = packed.batch * packed.wmb * packed.hmb
-    n_parsed = int((packed.arrays["meta_slab"][:, :, R_PARSED] > 0).sum())
+    meta = device_feeds(packed.arrays, packed.wmb, packed.hmb)[0]
+    n_parsed = int((meta[:, :, R_PARSED] > 0).sum())
     tables = (4 * (packed.ls4.size + packed.ls8.size)
               + TAP_ROWS4.size + TAP_ROWS8.size)    # int32, uint8
     return (n_mbs * (META_BYTES + PLANE_BYTES) + n_parsed * COEF_BYTES
@@ -530,13 +537,27 @@ def breakdown(stream, dev, mode=None):
 
 def decode_counted(fn):
     """(fn()'s result, wave kernel launches in that call): the count and
-    the count per card are set to 0 just before, the count read just
-    after."""
-    from minivideo_tpu_torch.ops import recon_fused
+    the counts per card of the wave and the records layout kernels are
+    set to 0 just before, the count read just after."""
+    from minivideo_tpu_torch.ops import recon_fused, wave_layout
     recon_fused.wave_kernel_cuda.launches = 0
     recon_fused.wave_kernel_cuda.launches_by_device = {}
+    wave_layout.wave_layout_cuda.launches_by_device = {}
     out = fn()
     return out, recon_fused.wave_kernel_cuda.launches
+
+
+def layouts_ok():
+    """(the records layout kernel's launches by card since decode_counted
+    reset them, whether they are the main path's): in the device staging
+    mode one with each wave kernel launch, on the same card; else none."""
+    from minivideo_tpu_torch.ops import recon_fused, wave_layout
+    from minivideo_tpu_torch.settings import staging_mode
+    got = dict(sorted(wave_layout.wave_layout_cuda.launches_by_device
+                      .items()))
+    want = (dict(sorted(recon_fused.wave_kernel_cuda.launches_by_device
+                        .items())) if staging_mode() == "device" else {})
+    return got, got == want
 
 
 def median_s(fn, reps=3):
@@ -620,15 +641,15 @@ def phase_staging(t0, dev, streams):
         feeds = {"raster": recon_fused.raster_feeds,
                  "records": recon_fused.records_feeds}.get(mode)
         cq = packed.chroma_qp_off
-        if feeds is None:
-            arrs = [packed.arrays[k] for k in recon_fused.DEVICE_STAGING]
-            feed_ms = 0.0
-        else:
-            def prep():
-                return feeds(packed.arrays, *cq, packed.wmb, packed.hmb,
-                             packed.batch)
-            arrs = prep()
-            feed_ms = cuda_ms(prep, 5)
+
+        def prep():
+            if feeds is None:              # the device mode's layout
+                return recon_fused.device_feeds(packed.arrays, packed.wmb,
+                                                packed.hmb)
+            return feeds(packed.arrays, *cq, packed.wmb, packed.hmb,
+                         packed.batch)
+        arrs = prep()
+        feed_ms = cuda_ms(prep, 5)
         kernel_ms = cuda_ms(lambda: recon_fused.wave_kernel_cuda(
             *arrs, packed.ls4, packed.ls8, packed.wmb, packed.hmb,
             has8x8=packed.has8x8, haspcm=packed.haspcm, check=False), 10)
@@ -676,16 +697,19 @@ def phase_staging(t0, dev, streams):
     for k, v in consts.items():
         log("staging", t0, f"{k} = {v!r}")
     log("staging", t0, f"os.cpu_count() = {cores}")
-    cross = max(1, math.floor(consts["DEVICE_FPS_RECORDS"]
-                              * consts["HOST_MS_DEVICE"] / 1000.0) + 1)
-    measured_pick = "device" if cores >= cross else "records"
+    def model(m, c):     # settings.staging_throughput on this run's
+        tag = m.upper()
+        return min(c * 1000.0 / consts[f"HOST_MS_{tag}"],
+                   consts[f"DEVICE_FPS_{tag}"])
+    measured_pick = max(("device", "records"), key=lambda m: model(m, cores))
+    ahead = [c for c in range(1, 65) if model("device", c)
+             >= model("records", c)]
     with env(MINIVIDEO_TPU_STAGING="auto"):
         auto = settings.staging_mode()
     faster = max(("device", "records"), key=lambda m: fps["cavlc", m])
-    log("staging", t0, f"auto picks {auto} with settings.py's constants "
-        f"(crossover {settings.staging_crossover_cores()} cores), "
-        f"{measured_pick} with this run's (crossover {cross} cores); "
-        f"measured faster here: {faster}")
+    log("staging", t0, f"auto picks {auto} with settings.py's constants, "
+        f"{measured_pick} with this run's (device ahead at {len(ahead)} "
+        f"of 1-64 cores); measured faster here: {faster}")
     return ok
 
 
@@ -1598,7 +1622,7 @@ def small_bucket_check(recons, dev):
              if not any(p[i].any() for p in planes)]
     pk = recon_fused.to_device(packed, dev)
     if pk.slots == 2:
-        arrs = [pk.arrays[k] for k in recon_fused.DEVICE_STAGING]
+        arrs = recon_fused.device_feeds(pk.arrays, pk.wmb, pk.hmb)
     else:
         arrs = recon_fused.records_feeds(pk.arrays, *pk.chroma_qp_off,
                                          pk.wmb, pk.hmb, pk.batch)
@@ -1733,11 +1757,12 @@ def phase_thumbnails(t0, dev, streams):
                     continue
                 files_ok, nbytes = thumbnail_files_ok(fmt, res, want,
                                                       planes)
+                lays, lays_ok = layouts_ok()
                 black, err_small = small_bucket_check(recons, dev)
                 good = (files_ok and res.done == n_good and res.failed == 1
                         and res.skipped == 0 and launches == 2 * n_cards
-                        and list(res.errors) == [bad] and black == [1]
-                        and err_small == 0)
+                        and lays_ok and list(res.errors) == [bad]
+                        and black == [1] and err_small == 0)
                 ok = ok and good
                 log("thumbnails", t0, f"batch_thumbnail {fmt}: "
                     f"{res.done} done, {res.failed} failed "
@@ -1746,7 +1771,10 @@ def phase_thumbnails(t0, dev, streams):
                     f"({nbytes} bytes), every file "
                     f"{'=' if files_ok else '!='} its pinned digest, "
                     f"wave_kernel launches {launches} (want {2 * n_cards}, "
-                    f"one per bucket and card); small bucket: black rows "
+                    f"one per bucket and card), wave_layout_kernel "
+                    f"launches by card {lays} (want one with each "
+                    f"wave_kernel launch in the device staging mode); "
+                    f"small bucket: black rows "
                     f"{black} (want [1], "
                     f"the corrupt clip), kernel vs plain max|err| "
                     f"{err_small} " + ("ok" if good else "FAILED"))
@@ -2052,10 +2080,11 @@ def scaleout_mesh(t0, dev, streams):
                     continue
                 files_ok, nbytes = thumbnail_files_ok(fmt, res, want,
                                                       planes)
+                lays, lays_ok = layouts_ok()
                 black, err_small = small_bucket_check(recons, dev)
                 good = (files_ok and res.done == n_good
                         and res.failed == 1 and list(res.errors) == [bad]
-                        and launches == 8 and len(recons) == 2
+                        and launches == 8 and len(recons) == 2 and lays_ok
                         and black == [1] and err_small == 0)
                 ok = ok and good
                 log("scaleout", t0, f"batch_thumbnail {fmt} over a "
@@ -2064,7 +2093,9 @@ def scaleout_mesh(t0, dev, streams):
                     f"{len(res.outputs)} files ({nbytes} bytes), every file "
                     f"{'=' if files_ok else '!='} its pinned digest, "
                     f"wave_kernel launches {launches} (want 8: 4 mesh "
-                    f"entries x {len(recons)} buckets); small bucket black "
+                    f"entries x {len(recons)} buckets), wave_layout_kernel "
+                    f"launches by card {lays} (want the same in the device "
+                    f"staging mode); small bucket black "
                     f"rows {black}, kernel vs plain max|err| {err_small} "
                     + ("ok" if good else "FAILED"))
             stages = {k: statistics.median(r[0].acc[k] for r in runs)
@@ -2320,18 +2351,22 @@ def cards_alone(t0, cards, streams, summary):
         pics, by_card = counted_by_card(
             lambda: decode_annexb(streams["cavlc"], device=dev))
         secs = time.time() - t
+        lays, lays_ok = layouts_ok()
         grew = [j for j, c in enumerate(cards)
                 if j != k and torch.cuda.max_memory_allocated(c) > held[j]]
         same = digests(pics) == want
         packed, arrs, _ = staged(small, dev)
         err = compare_kernel(packed, arrs)[0]
-        good = same and by_card == {k: 1} and not grew and err == 0
+        good = (same and by_card == {k: 1} and lays_ok and not grew
+                and err == 0)
         ok = ok and good
         rows.append({"card": k, "s": secs, "launches": by_card,
-                     "max_abs_err": err})
+                     "layout_launches": lays, "max_abs_err": err})
         log("cards", t0, f"(a) {dev} alone: decode_annexb 1080p x{BATCH} "
             f"planes {'=' if same else '!='} the JAX digests, launches by "
-            f"card {by_card} (want {{{k}: 1}}), other cards' allocators "
+            f"card {by_card} (want {{{k}: 1}}), wave_layout_kernel "
+            f"launches by card {lays} (want the same in the device "
+            f"staging mode), other cards' allocators "
             f"grew on {grew or 'none'}, kernel vs plain on a "
             f"{SMALL[1]['width_mbs']}x{SMALL[1]['height_mbs']} stream "
             f"max|err| {err}; {secs:.3f} s (host clock, with the parse) "
@@ -2630,7 +2665,7 @@ def phase_bench(t0, dev, streams):
         shutil.rmtree(prof, ignore_errors=True)
     secs = time.time() - t
     it, tr = res["iters"], res["trace"]
-    dtr, ptr = tr["device_stage"], tr["pipeline"]
+    dtr, ptr, pcn = tr["device_stage"], tr["pipeline"], tr["pipeline_counts"]
     checks = {
         "bench.py's libx264 streams": res["stream"] == "x264",
         "output check": res["output_check"] == "bit-exact",
@@ -2643,8 +2678,15 @@ def phase_bench(t0, dev, streams):
             dtr["wave_kernel_launches"] == it,
         "pipeline trace: 1 launch a batch":
             ptr["wave_kernel_launches"] == it,
-        # 4 staging copies in and 3 plane copies out per batch
-        "pipeline trace: the copies' calls": ptr["memcpy_calls"] >= 7 * it,
+        # the staging copies in (one a batch in the device mode: the
+        # records; the records mode's every array) and 3 plane copies out
+        # a batch, each one cudaMemcpy call in the trace
+        "pipeline trace: the copies' calls":
+            ptr["memcpy_calls"] == pcn["staging_copies"] + 3 * it
+            and (res["staging"] != "device" or pcn["staging_copies"] == it),
+        "pipeline: 1 records layout a batch (device mode)":
+            pcn["layout_launches"] == (it if res["staging"] == "device"
+                                       else 0),
         "launches = the bench's": launches == res["wave_kernel_launches"]
         > 0,
         "transfer included": res["transfer_included"] is True}
@@ -2673,7 +2715,10 @@ def phase_bench(t0, dev, streams):
         log("bench", t0, f"trace of the {name}: wave_kernel launches "
             f"{t_['wave_kernel_launches']} (batches {it}), wave_kernel run "
             f"on the card {t_['wave_kernel']}, cudaMemcpy calls "
-            f"{t_['memcpy_calls']}, other kernels "
+            f"{t_['memcpy_calls']} (staging copies queued "
+            f"{pcn['staging_copies'] if t_ is ptr else '-'}, layout "
+            f"launches {pcn['layout_launches'] if t_ is ptr else '-'}), "
+            f"other kernels "
             f"{t_['other_kernels']}, H2D {t_['h2d']}, D2H {t_['d2h']}, "
             f"busy {t_['busy_ms']:.3f} of {t_['window_ms']:.3f} ms "
             f"({100 * t_['busy_share']:.2f}%)")
@@ -2714,7 +2759,8 @@ def main(argv=None):
         return 2
     from minivideo_tpu_torch import native
     from minivideo_tpu_torch.models.h264.decoder import decode_annexb
-    from minivideo_tpu_torch.ops import interleave, kernels, recon_fused
+    from minivideo_tpu_torch.ops import (interleave, kernels, recon_fused,
+                                         wave_layout)
     from minivideo_tpu_torch.settings import staging_mode
     from minivideo_tpu_torch.testing.h264enc import make_stream
     from minivideo_tpu_torch.testing.streams import repeat_pictures
@@ -2807,6 +2853,18 @@ def main(argv=None):
     same = [all(torch.equal(a, b) for a, b in
                 zip(recon_fused.wave_kernel_cuda(*args, **kw), first))
             for _ in range(REPEATS)]
+    # the records' layout kernel vs its plain gather, every element of the
+    # four feeds (padding lanes and meta rows 34..39 included), on the
+    # 1080p batch and its first picture alone
+    recs, geo = packed.arrays["records"], (packed.wmb, packed.hmb)
+    lay_err = [max_err(wave_layout.wave_layout_cuda(r, *geo),
+                       wave_layout.wave_layout_plain(r, *geo))
+               for r in (recs, recs[:1])]
+    log("kernel", t0, f"wave_layout_kernel vs plain gather, 1080p B={BATCH} "
+        f"and B=1 (tolerance 0): max|err| {lay_err} "
+        + ("ok" if max(lay_err) == 0 else "MISMATCH"))
+    if max(lay_err) != 0:
+        failed.append("layout")
     ok = max(errs) == 0 and err_wide == 0 and err1080 == 0 and all(same)
     log("kernel", t0, f"wave_kernel vs plain wave loop (tolerance 0): small "
         f"streams max|err| {errs}, {WIDE_KW['width_mbs']}x"
@@ -2841,20 +2899,24 @@ def main(argv=None):
 
     # ---- 6. end to end (the main paths) ------------------------------------
     t = time.time()
-    recon_fused.wave_kernel_cuda.launches = 0
     interleave.tiles_to_raster_cuda.launches = 0
-    pics = decode_annexb(stream)
-    launches = recon_fused.wave_kernel_cuda.launches
+    pics, launches = decode_counted(lambda: decode_annexb(stream))
     il_other = interleave.tiles_to_raster_cuda.launches
+    lay_launches, lay_ok = layouts_ok()
+    want_lay = ({torch.cuda.current_device(): 1}
+                if staging_mode() == "device" else {})
     e2e_s = time.time() - t
     got = [[sha(p.y), sha(p.cb), sha(p.cr)] for p in pics]
     want = [JAX_DIGESTS[i % len(JAX_DIGESTS)] for i in range(BATCH)]
     ok_shape = (len(pics) == BATCH and pics[0].y.shape == (1088, 1920)
                 and pics[0].cb.shape == (544, 960))
-    ok = ok_shape and got == want and launches == 1 and il_other == 0
+    ok = (ok_shape and got == want and launches == 1 and il_other == 0
+          and lay_ok and lay_launches == want_lay)
     log("e2e", t0, f"decode_annexb: {len(pics)} pictures in {e2e_s:.3f}s, "
         f"planes {'=' if got == want else '!='} JAX digests, wave_kernel "
-        f"launches {launches} (want 1 per batch), interleave launches "
+        f"launches {launches} (want 1 per batch), wave_layout_kernel "
+        f"launches by card {lay_launches} (want {want_lay}: one a batch "
+        f"in the {staging_mode()} staging mode), interleave launches "
         f"{il_other} (want 0) " + ("ok" if ok else "FAILED"))
     if not ok:
         failed.append("e2e")
@@ -2886,12 +2948,24 @@ def main(argv=None):
         lambda: interleave.tiles_to_raster_plain(tiles, wmb, hmb),
         TIMED_RUNS)
     il_lib_ms = cuda_ms(library, TIMED_RUNS)
+    lay_ms = cuda_ms(lambda: wave_layout.wave_layout_cuda(recs, wmb, hmb),
+                     TIMED_RUNS)
+    lay1_ms = cuda_ms(lambda: wave_layout.wave_layout_cuda(recs[:1], wmb,
+                                                           hmb), TIMED_RUNS)
+    lay_plain_ms = cuda_ms(
+        lambda: wave_layout.wave_layout_plain(recs, wmb, hmb), 3)
+    lay_bytes = recs.numel() * recs.element_size() + sum(
+        a.numel() * a.element_size() for a in arrs)
+    lay_bound_ms = lay_bytes / HBM_BYTES_PER_S * 1e3
     il_bytes = 2 * tiles.numel()
     il_bound_ms = il_bytes / HBM_BYTES_PER_S * 1e3
     prof = {}
     for name, fn, kname in (
             ("wave_kernel B=16", wave, "wave_kernel"),
             ("wave_kernel B=1", lambda: wave(one), "wave_kernel"),
+            ("wave_layout_kernel B=16",
+             lambda: wave_layout.wave_layout_cuda(recs, wmb, hmb),
+             "mb_layout_kernel"),
             ("interleave_kernel B=16",
              lambda: interleave.tiles_to_raster_cuda(tiles, wmb, hmb),
              "interleave_kernel")):
@@ -2933,7 +3007,10 @@ def main(argv=None):
         f"{kernel_ms:.3f} ms (B=1: {kernel1_ms:.3f} ms, "
         f"{kernel1_ms / (2 * hmb + wmb - 2) * 1e3:.2f} us per dependent "
         f"MB step), plain {plain_ms:.3f} ms (one run, phase 4), bound {bound_ms:.4f} ms "
-        f"({nbytes} bytes); interleave {il_ms:.4f} ms, plain "
+        f"({nbytes} bytes); wave_layout_kernel {lay_ms:.4f} ms (B=1: "
+        f"{lay1_ms:.4f} ms), plain {lay_plain_ms:.4f} ms, bound "
+        f"{lay_bound_ms:.4f} ms ({lay_bytes} bytes); interleave "
+        f"{il_ms:.4f} ms, plain "
         f"{il_plain_ms:.4f} ms, permute().contiguous() {il_lib_ms:.4f} ms, "
         f"bound {il_bound_ms:.4f} ms ({il_bytes} bytes); decode_annexb "
         f"{BATCH / e2e_med:.2f} pictures/s (median of 3, {e2e_med:.3f}s)")
@@ -2964,6 +3041,12 @@ def main(argv=None):
          "launches": launches, "max_abs_err": max(errs + [err_wide,
                                                           err1080]),
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "wave_layout_kernel", "route": "cuda",
+         "source": "minivideo_tpu_torch/ops/csrc/wave_layout_kernel.cu",
+         "replaces": None, "launches": sum(lay_launches.values()),
+         "max_abs_err": max(lay_err), "ms": lay_ms,
+         "plain_ms": lay_plain_ms, "bound_ms": lay_bound_ms,
          "bound_by": "bytes", "library_ms": None},
         {"name": "interleave_kernel", "route": "cuda",
          "source": "minivideo_tpu_torch/ops/csrc/interleave_kernel.cu",

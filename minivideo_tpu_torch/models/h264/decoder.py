@@ -39,7 +39,8 @@ from ...device import resolve_device
 from ...native import (parse_slice_native, parse_slice_native_slab,
                        parse_slice_native_slab2)
 from ...ops.recon import (make_slab_staging, make_slab_staging2,
-                          pack_frames, pack_frames_slots, pack_frames_slots2)
+                          pack_frames, pack_frames_slots, pack_frames_slots2,
+                          zero_uncovered)
 from ...ops.color import yuv420_to_rgb_device
 from ...ops.recon_fused import reconstruct_frames_fused, to_device
 from ...ops.recon_wave import reconstruct_frames_wave
@@ -187,8 +188,10 @@ class H264Decoder:
           "records" - slot records: the parser's host writes are cheaper,
             the card builds the meta rows and transposes the slabs
             (ops/slab.py feeds);
-          "device" - the kernel's own layout [B, W, S, maxw] with the meta
-            rows, written by the parser; the card only receives it.
+          "device" - one MB-major record per macroblock, coefficients and
+            meta rows, each written whole by the parser (the MBs no
+            slice wrote are zeroed here); the card lays them out into
+            the kernel's feeds (ops/wave_layout.py).
 
         `pool` (optional ThreadPoolExecutor) parses every (picture, slice)
         task concurrently: slices are entropy-independent and the native
@@ -239,6 +242,7 @@ class H264Decoder:
             n = fut.result()
             slice_of_mb[first_mb:first_mb + n] = snum
         if mode == "device":
+            zero_uncovered(staging, [som for _, som in frames])
             return pack_frames_slots2(staging, sps, pps), frames
         return pack_frames_slots(staging, frames, sps, pps), frames
 

@@ -13,7 +13,7 @@ path that does not exist raises.  Three parses are bound, one per
 staging layout of ops/recon.py: `parse_slice_native` (raster: the full
 FrameSyntax arrays, a drop-in for the Python parsers),
 `parse_slice_native_slab` (slot records) and `parse_slice_native_slab2`
-(device layout, with the meta rows).
+(the device mode's MB-major records, with the meta rows).
 """
 
 from __future__ import annotations
@@ -37,6 +37,16 @@ _lib = None
 _demux_lib = None
 _export_lib = None
 
+
+# The device staging mode's MB-major records (src/entropy.cc kRec*): one
+# int16 record per macroblock, in raster order, written whole by
+# parse_slice_native_slab2: the luma [256], chroma [128] and DC [32] slabs
+# of ops/slab.py, then its META_ROWS rows 0..33 (rows 34..39 are zero),
+# zero padding to whole 32-byte sectors.  ops/wave_layout.py lays them out
+# into the wave kernel's per-wave feeds.
+REC_LUMA, REC_CHROMA, REC_DC, REC_META = 0, 256, 384, 416
+REC_META_ROWS = 34
+REC_LEN = 464           # 928 B
 
 # the one library that replaces all three builds (read at first load)
 OVERRIDE_ENV = "MINIVIDEO_TPU_TORCH_NATIVE_LIB"
@@ -245,10 +255,14 @@ def load():
     lib.mv_parse_slice_slab2.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_void_p),
     ]
+    lib.mv_record_len.restype = ctypes.c_int32
+    lib.mv_record_len.argtypes = []
+    if lib.mv_record_len() != REC_LEN:
+        raise RuntimeError(f"native records of {lib.mv_record_len()} "
+                           f"elements, REC_LEN {REC_LEN}")
     lib.mv_cabac_bins_total.restype = ctypes.c_uint64
     lib.mv_cabac_bins_total.argtypes = []
     _lib = lib
@@ -335,30 +349,30 @@ def parse_slice_native_slab(fs, slabs, i: int, rbsp: bytes,
     return int(n)
 
 
-def parse_slice_native_slab2(fs, slabs, i: int, rbsp: bytes,
+def parse_slice_native_slab2(fs, staging, i: int, rbsp: bytes,
                              data_bit_offset: int, first_mb: int,
                              slice_qp: int, entropy_cabac: bool,
                              transform8x8_mode: bool,
                              cb_qp_off: int = 0,
                              cr_qp_off: int = 0) -> int:
-    """Device-layout slab parse of one I slice: coefficients land in
-    `slabs` (ops.recon.make_slab_staging2) at frame row `i` as the fused
-    engine's per-wave feeds [W, S, maxw], together with the meta rows
-    [W, 40, maxw] int32.  Returns the slice's MB count; raises
-    BitstreamError on a parse error."""
+    """Device-mode parse of one I slice: each macroblock it parses is
+    written whole, coefficients and meta rows, as one int16 record
+    (REC_* above) at its raster index of `staging["records"][i]`
+    (ops.recon.make_slab_staging2), so the records need no zeroing
+    first; the per-MB metadata also fills the lite `fs`.  Returns the
+    slice's MB count; raises BitstreamError on a parse error (the MBs
+    parsed before it are written, the one that failed is not)."""
     lib = load()
-    bufs = _field_bufs(fs, 4)
-    for j, name in enumerate(("luma_slab", "chroma_slab", "dc_slab",
-                              "meta_slab")):
-        arr = slabs[name][i]
-        want = np.int32 if name == "meta_slab" else np.int16
-        assert arr.dtype == want and arr.flags["C_CONTIGUOUS"]
-        bufs[len(_FIELDS) + j] = arr.ctypes.data_as(ctypes.c_void_p).value
+    bufs = _field_bufs(fs, 1)
+    arr = staging["records"][i]
+    assert arr.dtype == np.int16 and arr.flags["C_CONTIGUOUS"]
+    assert arr.shape == (fs.n_mbs, REC_LEN)
+    bufs[len(_FIELDS)] = arr.ctypes.data_as(ctypes.c_void_p).value
     n = lib.mv_parse_slice_slab2(
         rbsp, len(rbsp), data_bit_offset,
         fs.width_mbs, fs.height_mbs, first_mb, slice_qp,
         1 if entropy_cabac else 0, 1 if transform8x8_mode else 0,
-        slabs["maxw"], 1, 0, cb_qp_off, cr_qp_off, bufs)
+        cb_qp_off, cr_qp_off, bufs)
     if n < 0:
         raise BitstreamError(f"native slab2 slice parse failed (code {n})")
     return int(n)

@@ -15,6 +15,10 @@
 #include <cstring>
 #include <vector>
 
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
+
 #include "h264_tables.h"
 
 namespace {
@@ -204,10 +208,12 @@ struct FrameBufs {
   int16_t* total_coeff_luma;    // [n][16]
   int16_t* total_coeff_chroma;  // [n][2][4]
   // slab mode (see ops/slab.py for the layouts): coefficient writes go
-  // to skew-slot-ordered int16 records instead of the raster buffers
-  int16_t* luma_slab = nullptr;    // [n_waves*maxw][256]
-  int16_t* chroma_slab = nullptr;  // [n_waves*maxw][128]
-  int16_t* dc_slab = nullptr;      // [n_waves*maxw][32]
+  // to skew-slot-ordered int16 records [n_waves*maxw][256|128|32]
+  // instead of the raster buffers; in the device mode to the parts of
+  // the record of the MB being parsed (SliceDec::rec)
+  int16_t* luma_slab = nullptr;
+  int16_t* chroma_slab = nullptr;
+  int16_t* dc_slab = nullptr;
   int8_t* cbf_luma_dc;
   int8_t* cbf_luma;          // [n][16]
   int8_t* cbf_luma8x8;       // [n][4]
@@ -326,7 +332,6 @@ struct Geo {
   // slot are computed ONCE per MB (set_current) instead of per call —
   // the per-call `mb % wmb` divisions were measurable in the bin loop.
   int cur_mb = -1, cur_x = 0, cur_y = 0, cur_a = -1, cur_b = -1;
-  int cur_w = 0, cur_k = 0;
   int64_t cur_slot = 0;
   void set_current(int mb, int maxw) {
     cur_mb = mb;
@@ -338,9 +343,7 @@ struct Geo {
     if (cur_b < first_mb) cur_b = -1;
     int w = 2 * cur_y + cur_x;
     int r0w = w / 2 < hmb - 1 ? w / 2 : hmb - 1;
-    cur_w = w;
-    cur_k = r0w - cur_y;
-    cur_slot = (int64_t)w * maxw + cur_k;
+    cur_slot = (int64_t)w * maxw + (r0w - cur_y);
   }
   inline void mb_neighbors(int mb, int* a, int* b) const {
     if (mb == cur_mb) { *a = cur_a; *b = cur_b; return; }
@@ -1070,6 +1073,44 @@ struct CabacCtx {
 };
 
 // ---------------------------------------------------------------------------
+// device-mode records (native/__init__.py REC_*): one int16 record per MB in
+// raster order, luma 256, chroma 128, DC 32, the META_ROWS rows 0..33,
+// zero padding to whole 32-byte sectors (the card's load granule)
+
+constexpr int kRecLuma = 0, kRecChroma = 256, kRecDc = 384, kRecMeta = 416;
+constexpr int kRecMetaRows = 34;
+constexpr int kRecLen = 464;
+static_assert(kRecMeta + kRecMetaRows <= kRecLen, "record overflow");
+static_assert(kRecLen * 2 % 32 == 0, "records are whole 32-byte sectors");
+
+// Copy one record to the staging with non-temporal stores where the
+// target is aligned for them (the staging is written once and read by
+// the copy to the card, never by this core again), else memcpy.
+static inline void stream_record(int16_t* dst, const int16_t* src) {
+  constexpr int kBytes = kRecLen * 2;
+#if defined(__SSE2__)
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    auto* d = reinterpret_cast<__m128i*>(dst);
+    auto* s = reinterpret_cast<const __m128i*>(src);
+    for (int i = 0; i < kBytes / 16; i++)
+      _mm_stream_si128(d + i, _mm_load_si128(s + i));
+    return;
+  }
+#endif
+  std::memcpy(dst, src, kBytes);
+}
+
+// orders the non-temporal stores of a slice before its return
+struct StoreFence {
+  bool on;
+  ~StoreFence() {
+#if defined(__SSE2__)
+    if (on) _mm_sfence();
+#endif
+  }
+};
+
+// ---------------------------------------------------------------------------
 // macroblock layer (shared plumbing)
 
 struct SliceDec {
@@ -1083,15 +1124,15 @@ struct SliceDec {
   int chroma_array_type = 1;
   int slab_mode = 0;
   int maxw = 0;                 // skew lane width (slab mode)
-  // slab layout v2 ("device layout"): buffers are [n_waves, S, B, maxw]
-  // — exactly the fused kernel's per-wave feed after one reshape, so
-  // the device-side slot transposes disappear (PERF.md round 3).  The
-  // parser also emits the meta rows (ops/slab.py META_ROWS layout) so
-  // the device-side meta build + skew gather disappears too.
+  // the device mode (slab_v2): each MB's record, coefficients and meta
+  // rows, is built whole in `rec` (zeroed per MB, so the coefficient
+  // stores stay sparse) and then written to rec_out[mb] in one
+  // contiguous store: every MB the slice parses is written whole, so the
+  // staging needs no zeroing first.  ops/wave_layout.py lays the records
+  // out into the kernel's per-wave feeds on the card.
   int slab_v2 = 0;
-  int64_t Bm = 1;               // element stride = batch * maxw (v2)
-  int64_t boff = 0;             // bidx * maxw (v2)
-  int32_t* meta_slab = nullptr; // [n_waves][META_ROWS][B][maxw] (v2)
+  int16_t* rec_out = nullptr;   // [n_mbs][kRecLen]
+  alignas(16) int16_t rec[kRecLen];
   int cb_qp_off = 0, cr_qp_off = 0;
   const SlabTabs* ST = &slab_tabs();  // hoisted static-local guard
   int64_t stop_bit;
@@ -1107,18 +1148,13 @@ struct SliceDec {
     int r0w = w / 2 < g.hmb - 1 ? w / 2 : g.hmb - 1;
     return (int64_t)w * maxw + (r0w - rr);
   }
-  // per-MB base offset into a slab with S sublane rows, and the element
-  // stride between rows: v1 record layout [slot][S] (stride 1), v2
-  // device layout [w][S][B][maxw] (stride B*maxw)
+  // per-MB base offset into a slab with S sublane rows: the slot's
+  // record [slot][S] in the records mode; in the device mode the slabs
+  // point into `rec`, the record of the MB being parsed (every store
+  // targets the current MB)
   inline int64_t slab_base(int mb, int S) const {
-    if (!slab_v2) return slot_of(mb) * S;
-    if (mb == g.cur_mb)                  // parse-time fast path: no div
-      return (int64_t)g.cur_w * S * Bm + boff + g.cur_k;
-    int64_t slot = slot_of(mb);
-    int64_t w = slot / maxw, k = slot % maxw;
-    return w * S * Bm + boff + k;
+    return slab_v2 ? 0 : slot_of(mb) * S;
   }
-  inline int64_t es() const { return slab_v2 ? Bm : 1; }
 
   // coefficient stores: scan-ordered levels -> raster buffers (classic
   // mode) or slab records (slab mode; ops/slab.py layouts)
@@ -1131,9 +1167,8 @@ struct SliceDec {
   void store_luma_dc(int mb, const int* pos, const int* val, int n) {
     if (slab_mode) {
       int16_t* out = f.dc_slab + slab_base(mb, 32);
-      const int64_t e = es();
       for (int j = 0; j < n; j++)
-        out[kZigzag4[pos[j]] * e] = (int16_t)val[j];
+        out[kZigzag4[pos[j]]] = (int16_t)val[j];
     } else {
       int32_t* out = f.luma_dc + mb * 16;
       for (int j = 0; j < n; j++) out[kZigzag4[pos[j]]] = val[j];
@@ -1145,9 +1180,8 @@ struct SliceDec {
     if (slab_mode) {
       int16_t* out = f.luma_slab + slab_base(mb, 256);
       const int* t = ST->l4[blk];
-      const int64_t e = es();
       for (int j = 0; j < n; j++)
-        out[t[pos[j] + shift] * e] = (int16_t)val[j];
+        out[t[pos[j] + shift]] = (int16_t)val[j];
     } else {
       int32_t* out = f.luma_ac + (mb * 16 + blk) * 16;
       for (int j = 0; j < n; j++)
@@ -1160,9 +1194,8 @@ struct SliceDec {
     if (slab_mode) {
       int16_t* out = f.luma_slab + slab_base(mb, 256);
       const int* t = ST->l8[b8];
-      const int64_t e = es();
       for (int j = 0; j < n; j++)
-        out[t[pos[j]] * e] = (int16_t)val[j];
+        out[t[pos[j]]] = (int16_t)val[j];
     } else {
       int32_t* out = f.luma8x8_coeff + (mb * 4 + b8) * 64;
       for (int j = 0; j < n; j++) out[kZigzag8[pos[j]]] = val[j];
@@ -1171,9 +1204,8 @@ struct SliceDec {
   void store_chroma_dc(int mb, int ic, const int* pos, const int* val,
                        int n) {
     if (slab_mode) {
-      const int64_t e = es();
-      int16_t* out = f.dc_slab + slab_base(mb, 32) + (16 + ic * 4) * e;
-      for (int j = 0; j < n; j++) out[pos[j] * e] = (int16_t)val[j];
+      int16_t* out = f.dc_slab + slab_base(mb, 32) + (16 + ic * 4);
+      for (int j = 0; j < n; j++) out[pos[j]] = (int16_t)val[j];
     } else {
       int32_t* out = f.chroma_dc + (mb * 2 + ic) * 4;
       for (int j = 0; j < n; j++) out[pos[j]] = val[j];
@@ -1185,9 +1217,8 @@ struct SliceDec {
     if (slab_mode) {
       int16_t* out = f.chroma_slab + slab_base(mb, 128);
       const int* t = ST->c4[ic * 4 + blk];
-      const int64_t e = es();
       for (int j = 0; j < n; j++)
-        out[t[pos[j] + 1] * e] = (int16_t)val[j];
+        out[t[pos[j] + 1]] = (int16_t)val[j];
     } else {
       int32_t* out = f.chroma_ac + ((mb * 2 + ic) * 4 + blk) * 16;
       for (int j = 0; j < n; j++)
@@ -1195,41 +1226,42 @@ struct SliceDec {
     }
   }
 
-  // v2: emit this MB's meta rows (kind/parsed/availability/modes/QP
-  // deriveds — the ops/slab.py META_ROWS layout) straight into the
-  // kernel's [W, 40, B, maxw] feed.  Availability matches
+  // device mode: start the record of the MB about to be parsed
+  void begin_record() {
+    if (slab_v2) std::memset(rec, 0, sizeof rec);
+  }
+  // device mode: this MB's meta rows (kind/parsed/availability/modes/QP
+  // deriveds, the ops/slab.py META_ROWS layout) into its record, then
+  // the record to its raster place.  Availability matches
   // ops/slab.meta_raster: neighbor exists, already parsed, same slice
   // (sequential raster parse from first_mb makes that `>= first_mb`).
-  void emit_meta(int mb) {
-    if (!meta_slab) return;
-    const int64_t e = Bm;
-    int32_t* m = meta_slab + (int64_t)g.cur_w * 40 * e + boff + g.cur_k;
-    auto put = [&](int row, int32_t v) { m[row * e] = v; };
+  void end_record(int mb) {
+    if (!slab_v2) return;
+    int16_t* m = rec + kRecMeta;
     int x = g.cur_x, y = g.cur_y;
-    put(0, f.mb_kind[mb]);
-    put(1, 1);
-    put(2, (x > 0 && mb - 1 >= g.first_mb) ? 1 : 0);
-    put(3, (y > 0 && mb - g.wmb >= g.first_mb) ? 1 : 0);
-    put(4, (x > 0 && y > 0 && mb - g.wmb - 1 >= g.first_mb) ? 1 : 0);
-    put(5, (x < g.wmb - 1 && y > 0 && mb - g.wmb + 1 >= g.first_mb)
-           ? 1 : 0);
-    put(6, f.i16_mode[mb]);
-    put(7, f.chroma_mode[mb]);
-    for (int i = 0; i < 4; i++)
-      put(8 + i, f.luma8x8_modes[mb * 4 + i]);
-    for (int i = 0; i < 16; i++)
-      put(12 + i, f.luma4x4_modes[mb * 16 + i]);
+    m[0] = f.mb_kind[mb];
+    m[1] = 1;
+    m[2] = (x > 0 && mb - 1 >= g.first_mb) ? 1 : 0;
+    m[3] = (y > 0 && mb - g.wmb >= g.first_mb) ? 1 : 0;
+    m[4] = (x > 0 && y > 0 && mb - g.wmb - 1 >= g.first_mb) ? 1 : 0;
+    m[5] = (x < g.wmb - 1 && y > 0 && mb - g.wmb + 1 >= g.first_mb)
+           ? 1 : 0;
+    m[6] = f.i16_mode[mb];
+    m[7] = f.chroma_mode[mb];
+    for (int i = 0; i < 4; i++) m[8 + i] = f.luma8x8_modes[mb * 4 + i];
+    for (int i = 0; i < 16; i++) m[12 + i] = f.luma4x4_modes[mb * 16 + i];
     int qp = f.qpy[mb];
-    put(28, qp % 6);
-    put(29, qp / 6);
+    m[28] = (int16_t)(qp % 6);
+    m[29] = (int16_t)(qp / 6);
     int qcb = qp + cb_qp_off;
     qcb = kQpcFromQpi[qcb < 0 ? 0 : (qcb > 51 ? 51 : qcb)];
-    put(30, qcb % 6);
-    put(31, qcb / 6);
+    m[30] = (int16_t)(qcb % 6);
+    m[31] = (int16_t)(qcb / 6);
     int qcr = qp + cr_qp_off;
     qcr = kQpcFromQpi[qcr < 0 ? 0 : (qcr > 51 ? 51 : qcr)];
-    put(32, qcr % 6);
-    put(33, qcr / 6);
+    m[32] = (int16_t)(qcr % 6);
+    m[33] = (int16_t)(qcr / 6);
+    stream_record(rec_out + (int64_t)mb * kRecLen, rec);
   }
 
   int parse_mb_cavlc(int mb);
@@ -1246,13 +1278,12 @@ void SliceDec::apply_pcm(int mb) {
   r.align();
   if (slab_mode) {
     const SlabTabs& t = *ST;
-    const int64_t e = es();
     int16_t* y = f.luma_slab + slab_base(mb, 256);
     for (int i = 0; i < 256; i++)
-      y[t.pcm_y[i] * e] = (int16_t)r.read_bits(8);
+      y[t.pcm_y[i]] = (int16_t)r.read_bits(8);
     int16_t* c = f.chroma_slab + slab_base(mb, 128);
     for (int i = 0; i < 128; i++)
-      c[t.pcm_c[i] * e] = (int16_t)r.read_bits(8);
+      c[t.pcm_c[i]] = (int16_t)r.read_bits(8);
   } else {
     int32_t* y = f.luma_ac + mb * 256;
     for (int i = 0; i < 256; i++) y[i] = (int32_t)r.read_bits(8);
@@ -1538,16 +1569,17 @@ int SliceDec::parse_mb_cabac(int mb) {
 }
 
 // Parse one I-slice's slice_data(); returns MBs parsed or negative error.
-// Buffer pointer order MUST match _FIELDS in native/__init__.py; in slab
-// mode three int16 slab buffers follow (luma/chroma/dc) and maxw > 0.
+// Buffer pointer order MUST match _FIELDS in native/__init__.py; in the
+// records mode three int16 slab buffers follow (luma/chroma/dc) and
+// maxw > 0; in the device mode (slab_v2) one, the picture's records.
 static int64_t parse_slice_impl(
     const uint8_t* rbsp, int64_t rbsp_len_bytes, int64_t data_bit_offset,
     int32_t wmb, int32_t hmb, int32_t first_mb, int32_t slice_qp,
     int32_t entropy_cabac, int32_t transform8x8_mode,
     void** bufs, int32_t slab_mode, int32_t maxw,
-    int32_t slab_v2 = 0, int32_t batch = 0, int32_t bidx = 0,
-    int32_t cb_qp_off = 0, int32_t cr_qp_off = 0) {
+    int32_t slab_v2 = 0, int32_t cb_qp_off = 0, int32_t cr_qp_off = 0) {
   SliceDec d;
+  StoreFence fence{slab_v2 != 0};
   d.r.data = rbsp;
   d.r.nbits = rbsp_len_bytes * 8;
   d.r.pos = data_bit_offset;
@@ -1576,18 +1608,18 @@ static int64_t parse_slice_impl(
   d.f.parsed = (uint8_t*)bufs[i++];
   d.slab_mode = slab_mode;
   d.maxw = maxw;
-  if (slab_mode) {
+  d.slab_v2 = slab_v2;
+  if (slab_v2) {
+    d.rec_out = (int16_t*)bufs[i++];
+    d.f.luma_slab = d.rec + kRecLuma;
+    d.f.chroma_slab = d.rec + kRecChroma;
+    d.f.dc_slab = d.rec + kRecDc;
+    d.cb_qp_off = cb_qp_off;
+    d.cr_qp_off = cr_qp_off;
+  } else if (slab_mode) {
     d.f.luma_slab = (int16_t*)bufs[i++];
     d.f.chroma_slab = (int16_t*)bufs[i++];
     d.f.dc_slab = (int16_t*)bufs[i++];
-  }
-  d.slab_v2 = slab_v2;
-  if (slab_v2) {
-    d.meta_slab = (int32_t*)bufs[i++];
-    d.Bm = (int64_t)batch * maxw;
-    d.boff = (int64_t)bidx * maxw;
-    d.cb_qp_off = cb_qp_off;
-    d.cr_qp_off = cr_qp_off;
   }
 
   d.g.wmb = wmb;
@@ -1616,8 +1648,9 @@ static int64_t parse_slice_impl(
     while (true) {
       if (mb >= n_mbs) return -2;
       d.g.set_current(mb, maxw);
+      d.begin_record();
       if (d.parse_mb_cabac(mb) < 0 || d.r.error) return -3;
-      d.emit_meta(mb);
+      d.end_record(mb);
       mb++;
       if (d.cab.e.terminate()) break;
     }
@@ -1638,8 +1671,9 @@ static int64_t parse_slice_impl(
     while (d.r.pos < stop) {
       if (mb >= n_mbs) return -2;
       d.g.set_current(mb, maxw);
+      d.begin_record();
       if (d.parse_mb_cavlc(mb) < 0 || d.r.error) return -3;
-      d.emit_meta(mb);
+      d.end_record(mb);
       mb++;
     }
   }
@@ -1674,23 +1708,25 @@ int64_t mv_parse_slice_slab(
                           transform8x8_mode, bufs, 1, maxw);
 }
 
-// Device-layout (v2) slab variant: coefficient buffers are the fused
-// kernel's per-wave feeds [n_waves, S, batch, maxw] int16 and the
-// parser ALSO emits the meta rows [n_waves, 40, batch, maxw] int32
-// (kind/parsed/availability/modes/QP deriveds), so device prep is a
-// reshape — no slot transposes, no meta build, no skew gather.  bufs
-// carries the 22 classic pointers + luma/chroma/dc slab + meta slab.
+// Device-mode variant: each MB the slice parses is written whole as one
+// int16 record of kRecLen (native/__init__.py REC_*: coefficients and
+// meta rows) at its raster index of the picture's records, so the
+// staging needs no zeroing first and the card lays the records out into
+// the kernel's per-wave feeds (ops/wave_layout.py).  bufs carries the 22
+// classic pointers + the picture's records [n_mbs][kRecLen].
 int64_t mv_parse_slice_slab2(
     const uint8_t* rbsp, int64_t rbsp_len_bytes, int64_t data_bit_offset,
     int32_t wmb, int32_t hmb, int32_t first_mb, int32_t slice_qp,
-    int32_t entropy_cabac, int32_t transform8x8_mode, int32_t maxw,
-    int32_t batch, int32_t bidx, int32_t cb_qp_off, int32_t cr_qp_off,
-    void** bufs) {
+    int32_t entropy_cabac, int32_t transform8x8_mode,
+    int32_t cb_qp_off, int32_t cr_qp_off, void** bufs) {
   return parse_slice_impl(rbsp, rbsp_len_bytes, data_bit_offset, wmb, hmb,
                           first_mb, slice_qp, entropy_cabac,
-                          transform8x8_mode, bufs, 1, maxw,
-                          1, batch, bidx, cb_qp_off, cr_qp_off);
+                          transform8x8_mode, bufs, 1, 0,
+                          1, cb_qp_off, cr_qp_off);
 }
+
+// int16 elements of a device-mode record (the bindings check theirs)
+int32_t mv_record_len(void) { return kRecLen; }
 
 // total CABAC bins decoded by this process (all threads, all slices)
 uint64_t mv_cabac_bins_total(void) {

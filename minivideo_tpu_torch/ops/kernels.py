@@ -18,6 +18,7 @@ from .._build import build_shared
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in ("wave_kernel.cu",
+                                             "wave_layout_kernel.cu",
                                              "interleave_kernel.cu")]
 NAME = "mvt_kernels"
 _libs: dict = {}
@@ -59,6 +60,8 @@ def load(defines=()):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.mvt_wave_run.restype = ci
         lib.mvt_wave_run.argtypes = [vp] * 12 + [ci] * 7 + [vp]
+        lib.mvt_layout_run.restype = ci
+        lib.mvt_layout_run.argtypes = [vp] * 6 + [ci] * 4 + [vp]
         lib.mvt_interleave_run.restype = ci
         lib.mvt_interleave_run.argtypes = [vp, vp, ci, ci, ci, vp]
         _libs[defines] = lib

@@ -13,11 +13,15 @@ layouts (`PackedFrames.slots`):
   1 records - `make_slab_staging` holds int16 slab records in skew-slot
               order that the native parser writes; `pack_frames_slots`
               stacks the per-MB metadata beside them;
-  2 device  - `make_slab_staging2` holds the kernel's per-wave feeds
-              [B, W, S, maxw] with the meta rows, written by the native
-              parser; `pack_frames_slots2` wraps them.
+  2 device  - `make_slab_staging2` holds one MB-major int16 record per
+              macroblock [B, n, REC_LEN] (coefficients and meta rows,
+              native.REC_*), each written whole by the native parser;
+              `zero_uncovered` zeroes those that no slice wrote and
+              `pack_frames_slots2` wraps them.  On the device
+              ops/wave_layout.py lays them out into the kernel's
+              per-wave feeds [B, W, S, maxw].
 
-ops/slab.py turns layouts 0 and 1 into layout 2 on the device for the
+ops/slab.py turns layouts 0 and 1 into those feeds on the device for the
 fused engine.  `build_residuals` (torch ops on the staging tensors'
 device) dequantises and inverse-transforms every block of a raster batch
 in one pass, for the wave and lane loops (ops/recon_wave.py,
@@ -35,6 +39,8 @@ import torch
 from ..models.h264.spatial import _blk4x4_at
 from ..models.h264.syntax import KIND_I16x16, KIND_IPCM, FrameSyntax
 from ..models.h264.tables import BLK4x4_POS, QPC_FROM_QPI
+from ..native import REC_LEN, REC_META
+from .slab import R_KIND
 from .transform import (chroma_dc_transform, dequant_4x4_t, dequant_8x8_t,
                         from_comp_first, idct_4x4_t, idct_8x8_t,
                         level_scale_4x4_np, level_scale_8x8_np,
@@ -79,9 +85,13 @@ class PackedFrames:
     buffers (luma_ac/luma8x8_coeff/chroma_ac/luma_dc/chroma_dc).
     slots=1: the coefficient buffers are replaced by skew-slot-ordered
     int16 slab records (luma_slab/chroma_slab/dc_slab [B, W*maxw, S]).
-    slots=2: meta_slab [B, W, META_ROWS, maxw] int32 and luma/chroma/dc
-    slabs [B, W, 256|128|32, maxw] int16.  Arrays are numpy arrays or
-    torch tensors."""
+    slots=2: `records` [B, n, REC_LEN] int16, the MB-major records the
+    native parser writes (native.REC_*); or, laid out from them (or
+    carried across from the JAX package, whose device layout they are),
+    the kernel's feeds meta_slab [B, W, META_ROWS, maxw] int32 and
+    luma/chroma/dc slabs [B, W, 256|128|32, maxw] int16
+    (recon_fused.DEVICE_STAGING).  Arrays are numpy arrays or torch
+    tensors."""
     wmb: int
     hmb: int
     arrays: dict          # name -> array, leading dim = batch
@@ -94,14 +104,16 @@ class PackedFrames:
     @property
     def batch(self) -> int:
         if self.slots == 2:
-            return self.arrays["meta_slab"].shape[0]
+            return next(iter(self.arrays.values())).shape[0]
         return self.arrays["mb_kind"].shape[0]
 
     @cached_property
     def haspcm(self) -> bool:
         """True if any MB in the batch is I_PCM (scanned once per pack)."""
-        if self.slots == 2:
-            kinds = self.arrays["meta_slab"][:, :, 0]
+        if self.slots == 2 and "records" in self.arrays:
+            kinds = self.arrays["records"][:, :, REC_META + R_KIND]
+        elif self.slots == 2:
+            kinds = self.arrays["meta_slab"][:, :, R_KIND]
         else:
             kinds = self.arrays["mb_kind"]
         return bool((kinds == KIND_IPCM).any())
@@ -253,32 +265,33 @@ def pack_frames_slots(staging: dict, frames, sps, pps) -> PackedFrames:
 
 
 def make_slab_staging2(wmb: int, hmb: int, batch: int) -> dict:
-    """Device-layout staging for the native parser's v2 slab mode:
-    frame-major [B, W, S, maxw] buffers, one disjoint contiguous region
-    per frame.  np.zeros maps lazy zero pages; unwritten slots keep
-    parsed=0."""
-    from .recon_wave import skew_tables
-    from .slab import META_ROWS
-    g = skew_tables(wmb, hmb)
-    W, maxw = g["n_waves"], g["maxw"]
-    B = batch
-    return {
-        "luma_slab": np.zeros((B, W, 256, maxw), np.int16),
-        "chroma_slab": np.zeros((B, W, 128, maxw), np.int16),
-        "dc_slab": np.zeros((B, W, 32, maxw), np.int16),
-        "meta_slab": np.zeros((B, W, META_ROWS, maxw), np.int32),
-        "maxw": maxw,
-        "batch": B,
-    }
+    """Staging of the device mode: one MB-major int16 record per
+    macroblock [B, n, REC_LEN] (native.REC_*) that the native parser
+    writes whole, left unzeroed: zero_uncovered zeroes the records that
+    no slice wrote before the batch is packed."""
+    return {"records": np.empty((batch, wmb * hmb, REC_LEN), np.int16)}
+
+
+def zero_uncovered(staging: dict, slice_of_mbs) -> int:
+    """Zero the device-mode records that no slice wrote: row i's MBs
+    where slice_of_mbs[i] is -1 (a slice that failed leaves its MBs at
+    -1, the ones it wrote before the failure too), so they read
+    parsed = 0 as in fresh zeroed staging.  Returns their count.  One
+    pass over the whole batch: the pipeline's host thread runs it while
+    the parse pool contends for the interpreter lock."""
+    unwritten = np.stack(slice_of_mbs) < 0
+    n = int(np.count_nonzero(unwritten))
+    if n:
+        staging["records"][:len(unwritten)][unwritten] = 0
+    return n
 
 
 def pack_frames_slots2(staging: dict, sps, pps) -> PackedFrames:
-    """PackedFrames over v2 staging: the arrays are the staging buffers
-    themselves; per-MB metadata rides in the parser-emitted meta slab."""
-    arrays = {k: staging[k] for k in ("luma_slab", "chroma_slab",
-                                      "dc_slab", "meta_slab")}
-    return _pack(sps.pic_width_in_mbs, sps.pic_height_in_map_units, arrays,
-                 pps, 2)
+    """PackedFrames over device-mode staging: the records themselves,
+    the per-MB metadata riding in their meta rows.  Call zero_uncovered
+    first: the staging is not zeroed before the parse."""
+    return _pack(sps.pic_width_in_mbs, sps.pic_height_in_map_units,
+                 {"records": staging["records"]}, pps, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -16,12 +16,14 @@ kernel `_wave_kernel` live here:
     `unskew_fused`.  It runs for tensors on the CPU, and on the card only
     where a test or chip_smoke.py compares the kernel with it.
 
-Both read the device-layout staging [B, W, S, maxw].  The raster and
-slot-record layouts reach it through `raster_feeds` / `records_feeds`
-(ops/slab.py's feeds, torch ops on the staging's device), so
-`reconstruct_frames_fused` dispatches on `packed.slots` first and then on
-the device of the staging tensors: a CUDA tensor launches the kernel or
-raises; there is no fallback from one version to the other.
+Both read the device-layout feeds [B, W, S, maxw].  The device mode's
+MB-major records reach them through `device_feeds` (ops/wave_layout.py:
+its CUDA kernel on a card, its plain gather on the CPU), the raster and
+slot-record layouts through `raster_feeds` / `records_feeds` (ops/slab.py's
+feeds, torch ops on the staging's device), so `reconstruct_frames_fused`
+dispatches on `packed.slots` first and then on the device of the staging
+tensors: a CUDA tensor launches the kernels or raises; there is no
+fallback from one version to the other.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from . import slab as sl
 from .recon import PackedFrames
 from .recon_lane import wave_compute_lane
 from .recon_wave import TAP_ROWS4, TAP_ROWS8, skew_tables
+from .wave_layout import wave_layout
 
 
 def wave_schedule(g):
@@ -321,7 +324,7 @@ wave_kernel_cuda.launches_by_device = {}
 
 def reconstruct_plain(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
                       wmb, hmb, has8x8=True, haspcm=True):
-    """Plain version of wave_kernel_cuda on any device: the v2 feed
+    """Plain version of wave_kernel_cuda on any device: the feeds'
     transpose, the plain wave loop and the unskew."""
     g = skew_tables(wmb, hmb)
     g["wmb"], g["hmb"] = wmb, hmb
@@ -342,8 +345,8 @@ def reconstruct_plain(meta_slab, luma_slab, chroma_slab, dc_slab, ls4, ls8,
 def make_reconstruct_fused_slots2(wmb: int, hmb: int, batch: int,
                                   has8x8: bool = True, haspcm: bool = True,
                                   check: bool = True):
-    """Reconstructor over device-layout (v2) staging tensors: the CUDA
-    kernel for CUDA tensors, the plain loop for CPU tensors.  `check`
+    """Reconstructor over the device layout's four feeds (device_feeds):
+    the CUDA kernel for CUDA tensors, the plain loop for CPU tensors.  `check`
     goes to wave_kernel_cuda: False leaves each launch in flight, its
     waits checked by the next check_waits()."""
 
@@ -363,8 +366,19 @@ def make_reconstruct_fused_slots2(wmb: int, hmb: int, batch: int,
     return recon
 
 
-# the device layout's staging arrays, in the order the reconstructors take
+# the device layout's feeds, in the order the reconstructors take
 DEVICE_STAGING = ("meta_slab", "luma_slab", "chroma_slab", "dc_slab")
+
+
+def device_feeds(arrays, wmb, hmb):
+    """The four feeds (DEVICE_STAGING order) of device-mode staging
+    tensors `arrays`: the feeds themselves where `arrays` holds them
+    (laid out already, or the JAX package's device layout carried across
+    by convert.packed_from_numpy), else `arrays["records"]` laid out on
+    their device by ops/wave_layout.py."""
+    if all(k in arrays for k in DEVICE_STAGING):
+        return [arrays[k] for k in DEVICE_STAGING]
+    return list(wave_layout(arrays["records"], wmb, hmb))
 
 
 def raster_feeds(arrays, cb_off, cr_off, wmb, hmb, batch):
@@ -451,7 +465,8 @@ def reconstruct_frames_fused(packed: PackedFrames, device=None,
             packed.haspcm, check)
     if packed.slots == 2:
         return make_reconstruct_fused_slots2(*args)(
-            *(packed.arrays[k] for k in DEVICE_STAGING), packed.ls4, packed.ls8)
+            *device_feeds(packed.arrays, packed.wmb, packed.hmb), packed.ls4,
+            packed.ls8)
     make = (make_reconstruct_fused_slots if packed.slots == 1
             else make_reconstruct_fused)
     return make(*args)(packed.arrays, packed.ls4, packed.ls8,

@@ -102,7 +102,7 @@ def main():
     print(f"card: {card}", flush=True)
     data = repeat_pictures(make_stream(**STREAM_1080P), 8)
     (_, packed), = stage_annexb(data, "cuda", staging_mode="device")
-    arrs = [packed.arrays[k] for k in rf.DEVICE_STAGING]
+    arrs = rf.device_feeds(packed.arrays, packed.wmb, packed.hmb)
     kw = dict(has8x8=packed.has8x8, haspcm=packed.haspcm)
     batches = {16: arrs, 1: [a[:1] for a in arrs]}
     wants = {B: rf.wave_kernel_cuda(*a, packed.ls4, packed.ls8, packed.wmb,

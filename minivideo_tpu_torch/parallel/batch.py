@@ -192,7 +192,8 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
     """Entropy-decode every selected frame of a geometry bucket into ONE
     slab staging batch.  Frames fan across `pool`; a parse failure
     ZEROES that frame's rows (parsed=0 reconstructs as black) and
-    reports the owning clip instead of failing the bucket.
+    reports the owning clip instead of failing the bucket.  In the
+    device mode the MBs no slice wrote are zeroed too (zero_uncovered).
 
     Returns (PackedFrames, owners=[(clip, frame_idx)], failed={path:
     error})."""
@@ -200,7 +201,8 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
     from ..native import (parse_slice_native_slab,
                           parse_slice_native_slab2)
     from ..ops.recon import (make_slab_staging, make_slab_staging2,
-                             pack_frames_slots, pack_frames_slots2)
+                             pack_frames_slots, pack_frames_slots2,
+                             zero_uncovered)
     sps = dcs[0].sps
     wmb, hmb = sps.pic_width_in_mbs, sps.pic_height_in_map_units
     rows = [(dc, fi) for dc in dcs for fi in range(len(dc.pictures))]
@@ -209,6 +211,7 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
         make_slab_staging
     staging = mk(wmb, hmb, B)
     fss = [FrameSyntax(wmb, hmb, lite=True) for _ in range(B)]
+    soms = [np.full(wmb * hmb, -1, np.int32) for _ in range(B)]
     failed: dict = {}
 
     def parse_frame(i):
@@ -216,9 +219,9 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
         pps = dc.pps
         with span("batch.parse_picture", 1, nbytes=sum(
                 len(nalu.rbsp) for nalu, _ in dc.pictures[fi])):
-            for nalu, sh in dc.pictures[fi]:
+            for snum, (nalu, sh) in enumerate(dc.pictures[fi]):
                 if staging_mode == "device":
-                    parse_slice_native_slab2(
+                    n = parse_slice_native_slab2(
                         fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
                         sh.first_mb_in_slice, sh.qp,
                         bool(pps.entropy_coding_mode_flag),
@@ -226,11 +229,13 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
                         cb_qp_off=pps.chroma_qp_index_offset,
                         cr_qp_off=pps.second_chroma_qp_index_offset)
                 else:
-                    parse_slice_native_slab(
+                    n = parse_slice_native_slab(
                         fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
                         sh.first_mb_in_slice, sh.qp,
                         bool(pps.entropy_coding_mode_flag),
                         bool(pps.transform_8x8_mode_flag))
+                first = sh.first_mb_in_slice
+                soms[i][first:first + n] = snum
 
     task = carry(parse_frame)
     futs = {pool.submit(task, i): i for i in range(B)}
@@ -241,11 +246,11 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
             dc, fi = rows[i]
             failed[dc.path] = f"{type(e).__name__}: {e}"
             fss[i].parsed[:] = 0           # frame reconstructs as black
-            if staging_mode == "device":
-                staging["meta_slab"][i][:] = 0
+            soms[i][:] = -1
 
     owners = rows
     if staging_mode == "device":
+        zero_uncovered(staging, soms)
         packed = pack_frames_slots2(staging, sps, dcs[0].pps)
     else:
         packed = pack_frames_slots(staging, [(fs, None) for fs in fss],

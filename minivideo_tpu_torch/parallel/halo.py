@@ -30,7 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.recon import PackedFrames
-from ..ops.recon_fused import (DEVICE_STAGING, _seg_masks, raster_feeds,
+from ..ops.recon_fused import (_seg_masks, device_feeds, raster_feeds,
                                records_feeds, to_device, unskew_fused,
                                wave_schedule, wave_step)
 from ..ops.recon_wave import skew_tables
@@ -222,7 +222,7 @@ def reconstruct_frames_halo(packed: PackedFrames, mesh,
     packed = to_device(packed, dev)
     a = packed.arrays
     if packed.slots == 2:
-        staging = [a[k] for k in DEVICE_STAGING]
+        staging = device_feeds(a, packed.wmb, packed.hmb)
     else:
         feeds = records_feeds if packed.slots == 1 else raster_feeds
         staging = feeds(a, *packed.chroma_qp_off, packed.wmb, packed.hmb,

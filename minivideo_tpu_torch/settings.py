@@ -12,19 +12,21 @@ its libraries once per checkout into `_build/` (_build.py), and has no
 XLA cache to wire.
 
 The decoder stages a batch in one of two layouts (ops/recon.py): "records"
-(slot records; cheaper host writes, a feed transpose and the meta build on
-the card) or "device" (the kernel's own layout, written by the parser;
-strided host writes, only a copy on the card).  The pipe moves at the
-slower of the host parse and the card's drain, so the better layout
-depends on the host's core count.  The four constants are measured on the
-card's host by chip_smoke.py's staging phase, which prints them, on the
-1080p CAVLC batch of 16 (testing/streams.STREAM_1080P); refresh them when
-the parser, the feeds or the kernel change.
+(slot records; sparse host writes into zeroed staging, a feed transpose
+and the meta build on the card) or "device" (one MB-major record per
+macroblock with its meta rows, written whole by the parser; a copy of
+half the bytes and one layout kernel on the card).  The pipe moves at the
+slower of the host parse and the card's drain, so the better layout can
+depend on the host's core count (with the constants below, the records
+layout below 8 cores and the device layout from 8).  The four constants
+are measured on the card's host by chip_smoke.py's staging phase, which
+prints them, on the 1080p CAVLC batch of 16 (testing/streams.
+STREAM_1080P); refresh them from several runs when the parser, the feeds
+or the kernel change.
 """
 
 from __future__ import annotations
 
-import math
 import os
 import sys
 
@@ -39,14 +41,16 @@ ENGINES = ("fused", "wave", "np")
 
 
 # Measured by chip_smoke.py's staging phase on an NVIDIA H100 80GB HBM3
-# at a 700.00 W power limit (nvidia-smi), on a host with 8 cores; PERF.md
-# records the run as log call 23.
+# at a 700.00 W power limit (nvidia-smi), on a host with 8 cores, with the
+# device mode's MB-major records and their layout kernel: each constant
+# the median of three runs of the same code (one run moves them by up to
+# a quarter).
 # native parse, ms per picture on one core (one thread), per layout
-HOST_MS_RECORDS = 20.7582
-HOST_MS_DEVICE = 21.3004
+HOST_MS_RECORDS = 24.7201
+HOST_MS_DEVICE = 26.4864
 # pictures/s of everything after the parse (staging copy, feeds, kernel)
-DEVICE_FPS_RECORDS = 368.7000
-DEVICE_FPS_DEVICE = 454.4848
+DEVICE_FPS_RECORDS = 267.4549
+DEVICE_FPS_DEVICE = 779.7771
 
 
 def staging_throughput(cores: int, mode: str) -> float:
@@ -58,20 +62,13 @@ def staging_throughput(cores: int, mode: str) -> float:
     return min(cores * 1000.0 / HOST_MS_RECORDS, DEVICE_FPS_RECORDS)
 
 
-def staging_crossover_cores() -> int:
-    """Smallest host core count where the device layout wins: where
-    enough cores push the device layout's feed past the records layout's
-    drain, N * 1000 / HOST_MS_DEVICE > DEVICE_FPS_RECORDS."""
-    return max(1, math.floor(DEVICE_FPS_RECORDS * HOST_MS_DEVICE
-                             / 1000.0) + 1)
-
-
 def staging_mode() -> str:
     """Slab staging layout for the native parse: "records" or "device"
     (see decoder.H264Decoder.parse_groups_slab).
 
     MINIVIDEO_TPU_STAGING overrides; "auto" (the default) picks the layout
-    with the higher modelled throughput for this host's core count."""
+    with the higher modelled throughput for this host's core count
+    (staging_throughput; the device layout where they tie)."""
     mode = os.environ.get("MINIVIDEO_TPU_STAGING", "auto")
     if mode in ("records", "device"):
         return mode
@@ -80,8 +77,8 @@ def staging_mode() -> str:
             f"MINIVIDEO_TPU_STAGING={mode!r}: expected 'records', "
             f"'device' or 'auto'")
     cores = os.cpu_count() or 1
-    return ("device" if cores >= staging_crossover_cores()
-            else "records")
+    return max(("device", "records"),
+               key=lambda m: staging_throughput(cores, m))
 
 
 def endianness() -> int:

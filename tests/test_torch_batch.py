@@ -53,12 +53,24 @@ def clips(tmp_path_factory):
 
 def _spy_run(pkg, clips, outdir, env, **kw):
     """batch_thumbnail of package `pkg` ("port" or "jax") under `env`,
-    with its StageTimer and its _Recon outputs captured."""
+    with its StageTimer and its _Recon outputs captured.  The port's
+    device-mode staging starts full of 0x5A bytes, not zeros: its parser
+    writes every MB it parses whole and the rest is zeroed after."""
+    patches = []
     if pkg == "port":
         from minivideo_tpu_torch import profiling
         from minivideo_tpu_torch.codecs import PictureFormat
+        from minivideo_tpu_torch.ops import recon as recon_mod
         from minivideo_tpu_torch.parallel import batch
         kw["device"] = "cpu"
+        fresh = recon_mod.make_slab_staging2
+
+        def dirty(*a):
+            staging = fresh(*a)
+            staging["records"].view(np.uint8)[...] = 0x5A
+            return staging
+
+        patches.append((recon_mod, "make_slab_staging2", dirty))
     else:
         from minivideo_tpu import profiling
         from minivideo_tpu import settings
@@ -84,6 +96,8 @@ def _spy_run(pkg, clips, outdir, env, **kw):
             mp.setenv(k, v)
         mp.setattr(profiling, "StageTimer", Timer)
         mp.setattr(batch._Recon, "__call__", recon)
+        for obj, attr, fn in patches:
+            mp.setattr(obj, attr, fn)
         if pkg == "jax":     # its settings snapshot reads the env once
             mp.setattr(settings, "_settings", None)
         res = batch.batch_thumbnail(clips, outdir, pictures_per_clip=2,
@@ -167,8 +181,10 @@ def test_batch_is_the_jax_package_s(runs, name):
 
 @pytest.mark.parametrize("name", ["device", "records"])
 def test_corrupt_frames_reconstruct_black(runs, name):
-    """The slab paths zero a failed frame's rows: its picture is black
-    (all zero samples) in both packages, while the good clips' are not."""
+    """The slab paths zero a failed frame's rows (the device mode's
+    records, on staging that held 0x5A bytes before the parse): its
+    picture is black (all zero samples) in both packages, while the good
+    clips' are not."""
     port, jax = runs(name)["port"], runs(name)["jax"]
     bad = [m for m in _manifest(port[0]) if m[0].endswith("bad.264")]
     assert bad and bad[0][1] == "failed" and bad[0][2].startswith("entropy")

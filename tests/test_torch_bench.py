@@ -9,7 +9,9 @@ size (6x4 MBs, batch 2, 3 iterations):
   * the pipeline (`--device cpu`: the kernel's plain version on unpinned
     staging) gives the JAX package's pictures for every batch;
   * a ring set reused after a slice that failed half way reads like a
-    fresh np.zeros set once cleared;
+    fresh set: in the records mode once cleared, in the device mode with
+    no clear, the MBs that a cut slice left unwritten zeroed at the pack
+    and counted;
   * a corrupted plane fails the output check (exit code 1), a batch that
     differs fails the checked run;
   * the trace reader's counts of a hand-written Chrome trace;
@@ -76,6 +78,17 @@ def _root_bench(monkeypatch, wmb, hmb, batch):
     return root
 
 
+def _laid_out(pk):
+    """A device-mode pack's records through the plain gather: the four
+    feeds of the JAX package's device layout, as numpy arrays."""
+    import torch
+    from minivideo_tpu_torch.ops.recon_fused import DEVICE_STAGING
+    from minivideo_tpu_torch.ops.wave_layout import wave_layout_plain
+    feeds = wave_layout_plain(torch.from_numpy(pk.arrays["records"]),
+                              pk.wmb, pk.hmb)
+    return {k: f.numpy() for k, f in zip(DEVICE_STAGING, feeds)}
+
+
 def _same_arrays(a, b):
     assert sorted(a) == sorted(b)
     for k in a:
@@ -92,7 +105,8 @@ def test_host_batch_stages_root_bench_bytes(bench, pool, monkeypatch, mode,
                                             entropy):
     """Two slices a picture.  bench.py packs slice id 0 for every MB of
     the records layout; the port packs each MB's slice, as the JAX
-    package's decoder does (its slice_of_mb)."""
+    package's decoder does (its slice_of_mb).  The device mode's records,
+    laid out by the plain gather, are bench.py's feeds."""
     from torch_port_helpers import jax_packed
     data = _stream(entropy)
     root = _root_bench(monkeypatch, KW["width_mbs"], KW["height_mbs"], 4)
@@ -107,7 +121,8 @@ def test_host_batch_stages_root_bench_bytes(bench, pool, monkeypatch, mode,
     assert got.chroma_qp_off == tuple(want.chroma_qp_off)
     np.testing.assert_array_equal(got.ls4, want.ls4)
     np.testing.assert_array_equal(got.ls8, want.ls8)
-    _same_arrays(got.arrays, want.arrays)
+    _same_arrays(_laid_out(got) if mode == "device" else got.arrays,
+                 want.arrays)
 
 
 @pytest.mark.parametrize("ring", [False, True])
@@ -128,8 +143,9 @@ def test_host_stream_hands_on_host_batch_packs(bench, pool, ring):
     bench.host_stream(*prep, pool, "device", 3, 2, consume=consume, ring=r)
     assert len(seen) == 3
     if ring:
+        # no set is cleared: clear_s times each batch's zero_uncovered
         assert seen[0] is seen[2] is not seen[1]
-        assert len(r.clear_s) == 1
+        assert len(r.clear_s) == 3 and r.zeroed_records == 0
 
 
 @pytest.mark.parametrize("mode", ["device", "records"])
@@ -161,14 +177,20 @@ def test_cpu_pipeline_gives_jax_pictures(bench, monkeypatch, mode):
 
 @pytest.mark.parametrize("mode", ["device", "records"])
 def test_reused_ring_set_after_bad_slice_is_fresh(bench, pool, mode):
-    """A slice cut short fails half way, leaving its first MBs written;
-    the ring clears the set before its next batch, whose staging then
-    equals a fresh set's byte for byte."""
+    """A slice cut short fails half way, leaving its first MBs written,
+    beside a whole picture.  The next batch holds, where that whole
+    picture lay, a picture whose one slice, cut elsewhere, parses
+    without error but leaves its last 16 MBs unwritten.  The records mode
+    clears the set before that batch; the device mode clears nothing, its
+    pack zeroes the unwritten MBs' records, counts them and times that
+    once.  Either way the batch's staging equals a fresh set's, byte for
+    byte."""
     import torch
     from minivideo_tpu_torch.bitio import BitstreamError
     from minivideo_tpu_torch.testing.streams import cut_idr
-    good = _stream("cavlc", n_slices=1)
-    bad = cut_idr(good, picks=(0,), keep=0.5)
+    bad = cut_idr(_stream("cavlc", n_slices=1), picks=(1,), keep=0.5)
+    short = cut_idr(_stream("cavlc", n_slices=1, seed=82), picks=(0,),
+                    keep=0.46)
     r = bench.StagingRing(mode, KW["width_mbs"], KW["height_mbs"], 2,
                           torch.device("cpu"))
     slot = r.acquire()
@@ -179,11 +201,20 @@ def test_reused_ring_set_after_bad_slice_is_fresh(bench, pool, mode):
     r.release(slot)
     r.release(r.acquire())                      # the ring's other set
     again = r.acquire()
-    assert again is slot and len(r.clear_s) == 1
-    prep = bench.prep_pictures(good)
-    got = bench.host_batch(*prep, pool, mode, 2, staging=again.staging)
+    assert again is slot
+    assert len(r.clear_s) == (0 if mode == "device" else 1)
+    prep = bench.prep_pictures(short)
+    staging, frames, tasks = bench.make_batch(*prep, mode, 2, again.staging)
+    list(pool.map(bench.parse_slice_task, tasks))
+    unwritten = frames[0][1] < 0
+    assert unwritten.sum() == 16 and not (frames[1][1] < 0).any()
+    if mode == "device":                        # stale bytes lie there
+        assert staging["records"][0][unwritten].any()
+    got = bench.pack_batch(staging, frames, *prep[1:], mode, r)
     want = bench.host_batch(*prep, pool, mode, 2)
     _same_arrays(got.arrays, want.arrays)
+    assert len(r.clear_s) == 1
+    assert r.zeroed_records == (16 if mode == "device" else 0)
 
 
 def test_corrupted_plane_exits_nonzero(bench, monkeypatch, capsys):

@@ -66,9 +66,9 @@ def _stream(name):
 
 def _staging(data, device):
     from minivideo_tpu_torch.models.h264.decoder import stage_annexb
-    from minivideo_tpu_torch.ops.recon_fused import DEVICE_STAGING
+    from minivideo_tpu_torch.ops.recon_fused import device_feeds
     (_, packed), = stage_annexb(data, device, staging_mode="device")
-    return packed, [packed.arrays[k] for k in DEVICE_STAGING]
+    return packed, device_feeds(packed.arrays, packed.wmb, packed.hmb)
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))

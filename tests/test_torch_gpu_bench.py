@@ -12,7 +12,11 @@ wave kernel's timeout path, with tolerance 0:
   * one 1080p batch of 16 of each committed libx264 stream of bench.py's
     workload (testing/streams.BENCH_X264), through the bench's host_batch
     and device staging, gives libavcodec's pinned digests with one
-    launch each.
+    launch each;
+  * the records' layout kernel (csrc/wave_layout_kernel.cu) equals its
+    plain gather on bench.py's 1080p CABAC 8x8 stream at B = 16 and
+    B = 1, every element of the four feeds (padding lanes included) on
+    feeds that held 0x5A bytes before, one launch a batch on the card.
 
 Each test skips without a CUDA card and carries the `cuda` marker.  This
 file imports neither JAX nor the JAX package:
@@ -60,11 +64,11 @@ def _sha(a):
 
 def _staged(cuda):
     from minivideo_tpu_torch.models.h264.decoder import stage_annexb
-    from minivideo_tpu_torch.ops.recon_fused import DEVICE_STAGING
+    from minivideo_tpu_torch.ops.recon_fused import device_feeds
     from minivideo_tpu_torch.testing.h264enc import make_stream
     (_, packed), = stage_annexb(make_stream(**PIPE_KW), cuda,
                                 staging_mode="device")
-    return packed, [packed.arrays[k] for k in DEVICE_STAGING]
+    return packed, device_feeds(packed.arrays, packed.wmb, packed.hmb)
 
 
 def test_hold_row_build_times_out_one_launch(cuda):
@@ -105,17 +109,21 @@ def test_hold_row_build_times_out_pipelined_run(cuda, monkeypatch):
 def test_pinned_pipeline_gives_jax_pictures(cuda, monkeypatch, mode):
     monkeypatch.setenv("MINIVIDEO_TPU_STAGING", mode)
     from minivideo_tpu_torch.ops import recon_fused as rf
+    from minivideo_tpu_torch.ops.wave_layout import wave_layout_cuda
     batch, iters = 4, 5
     b, prep = _bench(cuda, batch, iters)
     got = []
     try:
-        assert b.mode == mode and b.ring.slots[0].host[
-            "luma_slab"].is_pinned()
+        assert b.mode == mode and all(
+            t.is_pinned() for t in b.ring.slots[0].host.values())
         rf.wave_kernel_cuda.launches = 0
+        wave_layout_cuda.launches_by_device = {}
         b.overlapped(prep, lambda i, planes: got.append(
             [[_sha(p[r]) for p in planes] for r in range(batch)]))
         b.check_waits()
         assert rf.wave_kernel_cuda.launches == iters
+        assert wave_layout_cuda.launches_by_device == (
+            {cuda.index or 0: iters} if mode == "device" else {})
     finally:
         b.close()
     n = len(PIPE_DIGESTS)
@@ -141,3 +149,28 @@ def test_committed_x264_streams_give_libavcodec_pictures(cuda):
                               for r in range(b.batch)], digests, name)
     finally:
         b.close()
+
+
+@pytest.mark.parametrize("batch", [16, 1])
+def test_layout_kernel_equals_plain_gather(cuda, batch):
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from minivideo_tpu_torch import bench
+    from minivideo_tpu_torch.ops import wave_layout as wl
+    from minivideo_tpu_torch.testing import streams as st
+    prep = bench.prep_pictures(st.bench_x264("cabac_8x8"))
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        pk = bench.host_batch(*prep, pool, "device", batch)
+    recs = torch.from_numpy(pk.arrays["records"]).to(cuda)
+    out = wl.empty_feeds(pk.wmb, pk.hmb, batch, cuda)
+    for t in out:
+        t.view(torch.uint8).fill_(0x5A)
+    wl.wave_layout_cuda.launches_by_device = {}
+    got = wl.wave_layout_cuda(recs, pk.wmb, pk.hmb, out=out)
+    assert wl.wave_layout_cuda.launches_by_device == {cuda.index or 0: 1}
+    want = wl.wave_layout_plain(recs, pk.wmb, pk.hmb)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], wl.wave_layout_cuda(recs, pk.wmb,
+                                                    pk.hmb)[0])

@@ -99,9 +99,10 @@ def test_staging_mode_env(monkeypatch):
         assert settings.staging_mode() == mode
     monkeypatch.setenv("MINIVIDEO_TPU_STAGING", "auto")
     cores = settings.os.cpu_count() or 1
+    rates = {m: settings.staging_throughput(cores, m)
+             for m in ("device", "records")}
     assert settings.staging_mode() == (
-        "device" if cores >= settings.staging_crossover_cores()
-        else "records")
+        "device" if rates["device"] >= rates["records"] else "records")
     for mode in ("records", "device"):
         assert settings.staging_throughput(1, mode) > 0
     monkeypatch.setenv("MINIVIDEO_TPU_STAGING", "bogus")

@@ -188,12 +188,16 @@ def test_pool_tasks_are_children_of_their_submitter():
     assert threading.get_native_id() not in {r.thread for r in tasks}
 
 
-def test_pipeline_spans(monkeypatch, tmp_path):
+@pytest.mark.parametrize("mode", ["device", "records"])
+def test_pipeline_spans(monkeypatch, tmp_path, mode):
     """bench.Bench.overlapped on the CPU: a bench.parse_slice a slice
     under its batch's bench.parse_batch, one pack, wait_host, enqueue,
-    wait_card and consume a batch, the ring's acquire and clear."""
+    wait_card and consume a batch, the ring's acquire a batch, and its
+    clear: in the records mode one a reused set under its acquire, in
+    the device mode one a batch under its pack (zero_uncovered)."""
     from minivideo_tpu_torch import bench
     monkeypatch.setattr(bench, "CACHE", str(tmp_path))
+    monkeypatch.setenv("MINIVIDEO_TPU_STAGING", mode)
     _, recs = _session(lambda: _bench_run(bench))
     batches = _named(recs, "bench.parse_batch")
     slices = _named(recs, "bench.parse_slice")
@@ -216,8 +220,14 @@ def test_pipeline_spans(monkeypatch, tmp_path):
     assert {r.thread for r in _named(recs, "bench.wait_card")} == {main}
     acquire = _named(recs, "bench.ring_acquire")
     clear = _named(recs, "bench.ring_clear")
-    assert len(acquire) == ITERS and len(clear) == ITERS - 2
-    assert {r.parent for r in clear} <= {r.id for r in acquire}
+    assert len(acquire) == ITERS
+    if mode == "device":
+        assert len(clear) == ITERS
+        assert {r.parent for r in clear} <= {
+            r.id for r in _named(recs, "bench.pack")}
+    else:
+        assert len(clear) == ITERS - 2
+        assert {r.parent for r in clear} <= {r.id for r in acquire}
 
 
 def test_batch_thumbnail_spans(clips, tmp_path):  # noqa: F811

@@ -101,21 +101,27 @@ def test_fused_specialized_flags():
 
 
 def test_port_staging_matches_jax():
-    """The port's own staging + native parse equals the JAX package's."""
+    """The port's own staging + native parse equals the JAX package's:
+    its MB-major records, laid out into the kernel's feeds on their
+    device (the plain gather on the CPU), are the JAX package's device
+    layout."""
     from minivideo_tpu_torch.models.h264.decoder import stage_annexb
     from minivideo_tpu_torch.ops.recon import (make_slab_staging2,
                                                pack_frames_slots2)
+    from minivideo_tpu_torch.ops.recon_fused import (DEVICE_STAGING,
+                                                     device_feeds)
     data = make_stream(width_mbs=5, height_mbs=4, n_pictures=3, seed=12,
                        mb_kinds=("i16", "i4", "i8"), transform_8x8=True,
                        profile=100, n_slices=2, allow_pcm=True)
     jp, _, _, _ = jax_packed(data)
     (parsed, tp), = stage_annexb(data, "cpu", staging_mode="device")
     assert len(parsed) == 3 and tp.slots == 2
+    assert tp.arrays["records"].device.type == "cpu"
     _, sps, pps, _ = parsed[0]
-    for k in ("meta_slab", "luma_slab", "chroma_slab", "dc_slab"):
-        assert tp.arrays[k].device.type == "cpu"
-        np.testing.assert_array_equal(jp.arrays[k], tp.arrays[k].numpy(),
-                                      err_msg=k)
+    feeds = device_feeds(tp.arrays, tp.wmb, tp.hmb)
+    for k, f in zip(DEVICE_STAGING, feeds):
+        assert f.device.type == "cpu"
+        np.testing.assert_array_equal(jp.arrays[k], f.numpy(), err_msg=k)
     np.testing.assert_array_equal(jp.ls4, tp.ls4)
     np.testing.assert_array_equal(jp.ls8, tp.ls8)
     assert (jp.has8x8, jp.haspcm) == (tp.has8x8, tp.haspcm)
@@ -168,7 +174,7 @@ def test_entry_points_default_to_cuda():
     (_, on_card), = stage_annexb(data, "cpu", staging_mode="device")
     tp = dataclasses.replace(on_card, arrays={           # numpy staging
         k: v.numpy() for k, v in on_card.arrays.items()})
-    assert isinstance(tp.arrays["meta_slab"], np.ndarray)
+    assert isinstance(tp.arrays["records"], np.ndarray)
     if torch.cuda.is_available():
         assert packed_from_numpy(jp).arrays["meta_slab"].is_cuda
         assert tfused.reconstruct_frames_fused(tp)[0].is_cuda

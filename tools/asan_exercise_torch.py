@@ -36,7 +36,6 @@ import numpy as np  # noqa: E402
 from minivideo_tpu_torch import native  # noqa: E402
 from minivideo_tpu_torch.bitio import BitstreamError  # noqa: E402
 
-META_ROWS = 40          # ops/slab.py's meta rows (ops/ imports torch)
 THREADS = 8             # the decoder's and the bench's parse pools
 WMB, HMB = 11, 7
 
@@ -48,18 +47,15 @@ def slab_geometry(wmb, hmb):
 
 
 def make_stagings(wmb, hmb, batch=1):
-    """Numpy stagings of ops/recon.py's records (v1) and device (v2)
-    layouts for `batch` pictures."""
+    """Numpy stagings of ops/recon.py's records (v1) layout and of the
+    device mode's MB-major records (v2) for `batch` pictures."""
     W, maxw = slab_geometry(wmb, hmb)
     v1 = {"luma_slab": np.zeros((batch, W * maxw, 256), np.int16),
           "chroma_slab": np.zeros((batch, W * maxw, 128), np.int16),
           "dc_slab": np.zeros((batch, W * maxw, 32), np.int16),
           "maxw": maxw}
-    v2 = {"luma_slab": np.zeros((batch, W, 256, maxw), np.int16),
-          "chroma_slab": np.zeros((batch, W, 128, maxw), np.int16),
-          "dc_slab": np.zeros((batch, W, 32, maxw), np.int16),
-          "meta_slab": np.zeros((batch, W, META_ROWS, maxw), np.int32),
-          "maxw": maxw}
+    v2 = {"records": np.zeros((batch, wmb * hmb, native.REC_LEN),
+                              np.int16)}
     return v1, v2
 
 
