@@ -91,8 +91,8 @@ Phases, each printing one line with its seconds:
                   planes, one launch each; the kernel equals its plain
                   version on the picture; the kernel's CUDA-event time on
                   the batch and the host steps of staging it.  (b) the
-                  batch as MP4, Matroska, MPEG-TS, AVI, raw ES and two
-                  MPEG-PS files (access units split
+                  batch as MP4, Matroska, MPEG-TS, BDAV (.m2ts), AVI,
+                  raw ES and two MPEG-PS files (access units split
                   over 65,535-byte packets, and 2,048-byte packets that
                   ignore them) through mv_open, mv_parse and mv_decode
                   with the native demuxer: 16 pictures, libavcodec's
@@ -109,7 +109,9 @@ Phases, each printing one line with its seconds:
                   cropped planes).  Then batch_thumbnail YUV420 over the
                   three MP4 files
                   (1920x1080 files, the digests, one launch per bucket
-                  and card: 2 on one card).
+                  and card: 2 on one card), and over 4 BDAV copies of
+                  the 4-slice stream (the digests, one launch a card,
+                  one layout launch with each).
  12. staging    - the 1080p CAVLC batch through the three staging layouts
                   (MINIVIDEO_TPU_STAGING=device and =records through
                   decode_annexb; raster: the full native parse, pack_frames
@@ -1118,6 +1120,8 @@ X264_WRITERS = {
     "mp4": lambda C, s: C.write_mp4(s, 1920, 1080),
     "mkv": lambda C, s: C.write_mkv(s, 1920, 1080),
     "ts": lambda C, s: C.write_ts(s),
+    # BDAV (Blu-ray .m2ts): 192-byte source packets
+    "m2ts": lambda C, s: C.write_m2ts(s),
     "avi": lambda C, s: C.write_avi(s, 1920, 1080),
     "264": lambda C, s: s,
     # access units split over 65,535-byte PES packets, and 2,048-byte
@@ -1347,9 +1351,43 @@ def phase_x264_1080p(t0, dev, streams):
             f"wave_kernel launches {launches} (want {2 * n}, one per "
             f"bucket and card) "
             + ("ok" if good else "FAILED"))
+        ok = bdav_thumbnails(t0, tmp) and ok
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return ok
+
+
+def bdav_thumbnails(t0, tmp, copies=4):
+    """batch_thumbnail YUV420 over BDAV (.m2ts) copies of the 4-slice
+    1080p stream: each thumbnail's cropped planes are libavcodec's
+    digests, one wave launch a card (one bucket) and one layout launch
+    with each."""
+    from minivideo_tpu_torch.testing import containers as C
+    from minivideo_tpu_torch.testing import streams as st
+    name = "cabac_8x8_4slices"
+    data = st.x264_1080p(name)
+    clips = []
+    for i in range(copies):
+        clips.append(os.path.join(tmp, f"bdav{i}.m2ts"))
+        with open(clips[-1], "wb") as f:
+            f.write(C.write_m2ts(data, ats_start=0x470000 * (i + 1)))
+    (res, _, secs, _), launches = decode_counted(
+        lambda: batch_run(clips, os.path.join(tmp, "thumbs_bdav"),
+                          "YUV420"))
+    lays, lays_ok = layouts_ok()
+    got = [[sha(a) for a in yuv_planes(o, 1080, 1920)]
+           for o in sorted(res.outputs)]
+    want = [st.X264_1080P[name][3]] * copies
+    n = default_entries()
+    good = (got == want and res.done == copies and not res.failed
+            and launches == n and lays_ok)
+    log("x264_1080p", t0, f"batch_thumbnail YUV420 over {copies} BDAV "
+        f"copies of {name} ({os.path.getsize(clips[0])} bytes each) in "
+        f"{secs:.3f}s: 1920x1080 files {'=' if got == want else '!='} "
+        f"libavcodec's digests, wave_kernel launches {launches} (want {n}, "
+        f"one bucket), layout launches {lays} "
+        + ("ok" if good else "FAILED"))
+    return good
 
 
 # small streams for the Python parsers: 8x8 transforms, I_PCM, 3 slices

@@ -9,6 +9,17 @@ sample per PES unit.  Payload bytes are scattered across transport
 packets, so samples carry per-fragment (offset, size) lists
 (media.Track.fragments) and read_sample() reassembles them.
 
+The packet size comes from the sync period: 188-byte TS packets, or
+the 192-byte source packets of BDAV (Blu-ray .m2ts, AVCHD .mts), a
+4-byte TP_extra_header (copy permission, arrival time stamp) before
+each TS packet.  Packets are walked at that stride; only where the sync
+byte is missing there does the walk resync, to the next 0x47 whose
+period holds (the last of a header's run of them), so a 0x47 inside a
+header is never taken for a packet.
+Null packets (PID 0x1FFF) are skipped.  The walk is one `demux.ts` span
+(profiling.span): items the packets, bytes the file's, and its note the
+packet size and the null and resync counts; demux.cc walks the same way.
+
 H.264 ES in TS is Annex-B, so mv_decode works end-to-end on TS files.
 """
 
@@ -22,6 +33,8 @@ from .. import trace
 from . import pes as P
 
 TS_PACKET = 188
+TS_SYNCS = 4        # syncs, one stride apart, that make a period
+NULL_PID = 0x1FFF
 
 # PMT stream_type -> codec (ISO 13818-1 table 2-34 + common registrations)
 _STREAM_TYPES = {
@@ -51,12 +64,38 @@ class _PesAcc:
         self.hdr = b""          # first bytes, for the PES header parse
 
 
+def ts_period(data, q: int) -> int:
+    """The packet size from the sync period at q (data[q] == 0x47): 188
+    where 0x47 also stands TS_SYNCS - 1 further strides of 188 on, 192
+    (BDAV) where it does at strides of 192, else 0.  Strides past the
+    end of `data` are not asked for."""
+    n = len(data)
+    for stride in (188, 192):
+        if stride == 192 and q < 4:
+            break
+        if all(data[q + k * stride] == 0x47 for k in range(1, TS_SYNCS)
+               if q + k * stride < n):
+            return stride
+    return 0
+
+
 def ts_parse(media: MediaFile) -> bool:
     from ..bufio import FileWindow
+    from ..profiling import span
     fh = media.file_handle
     # bounded-memory sliding window (reference bitstream.c:51); the
     # parse logic below is byte-identical to in-memory operation
     data = FileWindow(fh, media.file_size)
+    with span("demux.ts", nbytes=len(data)) as s:
+        ok, counts = _walk(media, data)
+        s.note(items=counts[1], packet_size=counts[0], nulls=counts[2],
+               resyncs=counts[3])
+    return ok
+
+
+def _walk(media: MediaFile, data):
+    """Demux the TS in `data` into `media`'s tracks: (ok, [packet size,
+    packets, null packets, resyncs])."""
     n = len(data)
 
     pmt_pids: set[int] = set()
@@ -86,23 +125,51 @@ def ts_parse(media: MediaFile) -> bool:
             samples.setdefault(pid, []).append(
                 (a.frags, size, a.pts, a.dts))
 
-    pos = 0
-    while pos + TS_PACKET <= n:
-        if data[pos] != 0x47:
-            nxt = data.find(b"\x47", pos + 1)
-            if nxt == -1:
-                break
-            pos = nxt
+    def resync(start):
+        """(stride, first source packet) of the next 0x47 from `start`
+        whose period holds, or (0, n).  A 0x47 in the TP_extra_header of
+        every packet holds a 192 period as well, so of the 192 periods
+        at q..q+4 the last is the TS sync."""
+        q = data.find(b"\x47", start)
+        while q != -1:
+            stride = ts_period(data, q)
+            if stride == 192:
+                q += next((j for j in range(4, 0, -1) if q + j < n
+                           and data[q + j] == 0x47
+                           and ts_period(data, q + j) == 192), 0)
+            if stride:
+                return stride, q - (stride - TS_PACKET)
+            q = data.find(b"\x47", q + 1)
+        return 0, n
+
+    # source packets of `stride` bytes, each ending in its TS packet
+    if n > 0 and data[0] == 0x47 and ts_period(data, 0) == 188:
+        stride, pos = 188, 0
+    elif n > 4 and data[4] == 0x47 and ts_period(data, 4) == 192:
+        stride, pos = 192, 0
+    else:
+        stride, pos = resync(0)
+    counts = [stride, 0, 0, 0]
+    while stride and pos + stride <= n:
+        ts = pos + stride - TS_PACKET
+        if data[ts] != 0x47:
+            counts[3] += 1
+            stride, pos = resync(ts + 1)
             continue
-        b1, b2, b3 = data[pos + 1], data[pos + 2], data[pos + 3]
+        counts[1] += 1
+        b1, b2, b3 = data[ts + 1], data[ts + 2], data[ts + 3]
         pusi = bool(b1 & 0x40)
         pid = ((b1 & 0x1F) << 8) | b2
         afc = (b3 >> 4) & 3
-        p = pos + 4
+        p = ts + 4
+        end = ts + TS_PACKET
+        if pid == NULL_PID:
+            counts[2] += 1
+            pos += stride
+            continue
         if afc in (2, 3):                        # adaptation field
             p += 1 + data[p]
-        if afc in (1, 3) and p < pos + TS_PACKET:
-            end = pos + TS_PACKET
+        if afc in (1, 3) and p < end:
             if pid == 0:                         # PAT
                 q = p + 1 + data[p]              # pointer_field
                 sect_len = ((data[q + 1] & 0x0F) << 8) | data[q + 2]
@@ -139,7 +206,7 @@ def ts_parse(media: MediaFile) -> bool:
                     a.frags.append((p, end - p))
                     if len(a.hdr) < 32:
                         a.hdr += data[p:end][:32 - len(a.hdr)]
-        pos += TS_PACKET
+        pos += stride
     for pid in list(acc):
         close_pes(pid)
 
@@ -177,4 +244,4 @@ def ts_parse(media: MediaFile) -> bool:
         trace.info("TS", "PID 0x%04X: %d PES units (%s)", pid,
                    len(units), codec.name)
     media.parsed = ok
-    return ok
+    return ok, counts

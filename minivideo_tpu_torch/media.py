@@ -149,6 +149,15 @@ class Track:
         if self.fragments is not None:
             frags = self.fragments[index]
             if frags is not None:
+                lo = min(off for off, _ in frags)
+                hi = max(off + sz for off, sz in frags)
+                if hi - lo <= 2 * sum(sz for _, sz in frags):
+                    # close fragments (a TS packet's payload every 188 or
+                    # 192 bytes): one read of the span they cover
+                    fh.seek(int(lo))
+                    span = fh.read(int(hi - lo))
+                    return b"".join(span[off - lo:off - lo + sz]
+                                    for off, sz in frags)
                 parts = []
                 for off, sz in frags:
                     fh.seek(int(off))

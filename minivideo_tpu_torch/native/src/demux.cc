@@ -14,6 +14,8 @@
 //   mv_demux_track_info(h, t, i64[24])   -> 0 / -1
 //   mv_demux_track_tables(h, t, type*, size*, off*, pts*, dts*) -> 0 / -1
 //   mv_demux_track_psets(h, t, buf, cap) -> bytes written ([u16be len][...])
+//   mv_demux_ts_counts(h, i64[4])        -> 0 / -1 (TS: packet size,
+//                                           packets, null packets, resyncs)
 //   mv_demux_close(h)
 //
 // info[] layout (all int64):
@@ -73,6 +75,9 @@ struct NTrack {
 
 struct Demux {
   std::vector<NTrack> tracks;
+  // TS walk: packet size (188, or 192 for BDAV source packets; 0 where
+  // no period was found), packets walked, null packets, resyncs
+  int64_t ts_counts[4] = {0};
 };
 
 // ---- bounded sliding-window file view -------------------------------------
@@ -1656,8 +1661,25 @@ struct TsAcc {
   bool open = false;
 };
 
+// The transport packet size from the sync period at q (b.u8(q) == 0x47):
+// 188 where 0x47 also stands TS_SYNCS - 1 further strides of 188 on, 192
+// (BDAV source packets: a 4-byte TP_extra_header before each TS packet)
+// where it does at strides of 192, else 0.  Strides past the file's end
+// are not asked for.
+constexpr int TS_SYNCS = 4;
+
+size_t ts_period(const Buf& b, size_t q) {
+  for (size_t stride : {size_t{188}, size_t{192}}) {
+    if (stride == 192 && q < 4) break;
+    bool ok = true;
+    for (int k = 1; k < TS_SYNCS && q + k * stride < b.n; k++)
+      if (b.u8(q + k * stride) != 0x47) { ok = false; break; }
+    if (ok) return stride;
+  }
+  return 0;
+}
+
 bool parse_ts(const Buf& b, Demux& dm) {
-  constexpr size_t PKT = 188;
   struct EsInfo { int64_t stype, codec; };
   // PMT stream_type -> (StreamType, Codec); ts.py _STREAM_TYPES
   auto stream_type = [](uint8_t st, EsInfo* out) -> bool {
@@ -1721,22 +1743,61 @@ bool parse_ts(const Buf& b, Demux& dm) {
     a->hdr.clear();
   };
 
-  size_t pos = 0;
-  while (pos + PKT <= b.n) {
-    if (b.u8(pos) != 0x47) {
-      size_t nxt = b.find_byte(0x47, pos + 1);
-      if (nxt == std::string::npos) break;
-      pos = nxt;
+  // Walk source packets of `stride` bytes, the TS packet `hdr` bytes in
+  // (188 / 0, or 192 / 4).  Where the sync byte is missing at the
+  // stride, resync: the next 0x47 whose period holds (ts_period).  A
+  // 0x47 in the TP_extra_header of every packet holds a 192 period as
+  // well, so of the 192 periods at q..q+4 the last is the TS sync.
+  int64_t* counts = dm.ts_counts;
+  size_t stride = 0, hdr = 0, pos = 0;
+  auto resync = [&](size_t from) -> bool {
+    for (size_t q = b.find_byte(0x47, from); q != std::string::npos;
+         q = b.find_byte(0x47, q + 1)) {
+      stride = ts_period(b, q);
+      if (stride == 192)
+        for (size_t j = 4; j > 0; j--)
+          if (b.u8(q + j) == 0x47 && ts_period(b, q + j) == 192) {
+            q += j;
+            break;
+          }
+      if (stride) {
+        hdr = stride - 188;
+        pos = q - hdr;
+        return true;
+      }
+    }
+    return false;
+  };
+  if (b.u8(0) == 0x47 && ts_period(b, 0) == 188) {
+    stride = 188;
+  } else if (b.u8(4) == 0x47 && ts_period(b, 4) == 192) {
+    stride = 192;
+    hdr = 4;
+  } else {
+    resync(0);                             // stride 0 where none holds
+  }
+  counts[0] = (int64_t)stride;
+  while (stride && pos + stride <= b.n) {
+    size_t ts = pos + hdr;
+    if (b.u8(ts) != 0x47) {
+      counts[3]++;
+      if (!resync(ts + 1)) break;
       continue;
     }
-    uint8_t b1 = b.u8(pos + 1), b2 = b.u8(pos + 2), b3 = b.u8(pos + 3);
+    counts[1]++;
+    uint8_t b1 = b.u8(ts + 1), b2 = b.u8(ts + 2), b3 = b.u8(ts + 3);
     bool pusi = (b1 & 0x40) != 0;
     int pid = ((b1 & 0x1F) << 8) | b2;
     int afc = (b3 >> 4) & 3;
-    size_t p = pos + 4;
+    size_t p = ts + 4;
+    size_t end = ts + 188;
+    if (pid == 0x1FFF) {                   // null packet
+      counts[2]++;
+      pos += stride;
+      continue;
+    }
     if (afc == 2 || afc == 3) p += 1 + b.u8(p);
-    if ((afc == 1 || afc == 3) && p < pos + PKT) {
-      size_t end = pos + PKT;
+    if ((afc == 1 || afc == 3) && p < end) {
       if (pid == 0) {                      // PAT
         size_t q = p + 1 + b.u8(p);
         int sect_len = ((b.u8(q + 1) & 0x0F) << 8) | b.u8(q + 2);
@@ -1784,7 +1845,7 @@ bool parse_ts(const Buf& b, Demux& dm) {
         }
       }
     }
-    pos += PKT;
+    pos += stride;
   }
   for (auto& [pid, a] : acc) {
     (void)a;
@@ -1919,6 +1980,14 @@ int32_t mv_demux_track_frags(void* h, int32_t t, int64_t* off,
               tr.frag_size.size() * sizeof(int64_t));
   std::memcpy(cnt, tr.frag_cnt.data(),
               tr.frag_cnt.size() * sizeof(int32_t));
+  return 0;
+}
+
+// the TS walk's counts (Demux::ts_counts); zeros for other containers
+int32_t mv_demux_ts_counts(void* h, int64_t* out) {
+  auto dm = static_cast<Demux*>(h);
+  if (!dm) return -1;
+  std::memcpy(out, dm->ts_counts, sizeof(dm->ts_counts));
   return 0;
 }
 

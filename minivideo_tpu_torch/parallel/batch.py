@@ -220,20 +220,21 @@ def _parse_bucket_slab(dcs, pool, staging_mode):
         with span("batch.parse_picture", 1, nbytes=sum(
                 len(nalu.rbsp) for nalu, _ in dc.pictures[fi])):
             for snum, (nalu, sh) in enumerate(dc.pictures[fi]):
-                if staging_mode == "device":
-                    n = parse_slice_native_slab2(
-                        fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
-                        sh.first_mb_in_slice, sh.qp,
-                        bool(pps.entropy_coding_mode_flag),
-                        bool(pps.transform_8x8_mode_flag),
-                        cb_qp_off=pps.chroma_qp_index_offset,
-                        cr_qp_off=pps.second_chroma_qp_index_offset)
-                else:
-                    n = parse_slice_native_slab(
-                        fss[i], staging, i, nalu.rbsp, sh.data_bit_offset,
-                        sh.first_mb_in_slice, sh.qp,
-                        bool(pps.entropy_coding_mode_flag),
-                        bool(pps.transform_8x8_mode_flag))
+                with span("batch.parse_slice", 1, nbytes=len(nalu.rbsp)):
+                    if staging_mode == "device":
+                        n = parse_slice_native_slab2(
+                            fss[i], staging, i, nalu.rbsp,
+                            sh.data_bit_offset, sh.first_mb_in_slice, sh.qp,
+                            bool(pps.entropy_coding_mode_flag),
+                            bool(pps.transform_8x8_mode_flag),
+                            cb_qp_off=pps.chroma_qp_index_offset,
+                            cr_qp_off=pps.second_chroma_qp_index_offset)
+                    else:
+                        n = parse_slice_native_slab(
+                            fss[i], staging, i, nalu.rbsp,
+                            sh.data_bit_offset, sh.first_mb_in_slice, sh.qp,
+                            bool(pps.entropy_coding_mode_flag),
+                            bool(pps.transform_8x8_mode_flag))
                 first = sh.first_mb_in_slice
                 soms[i][first:first + n] = snum
 

@@ -41,6 +41,12 @@ _EXTENSION_MAP = {
 }
 
 
+# the sync bytes of a BDAV stream's first three source packets, and the
+# bytes detect_container reads to see them
+_BDAV_SYNCS = (4, 196, 388)
+HEAD_BYTES = 392
+
+
 def detect_container_from_bytes(head: bytes) -> Container:
     """Sniff the container from the first bytes of the file
     (import.c:186-311)."""
@@ -49,6 +55,10 @@ def detect_container_from_bytes(head: bytes) -> Container:
     b = head
 
     if b[0] == 0x47:  # MPEG-TS sync byte
+        return Container.MPEG_TS
+    # BDAV (Blu-ray .m2ts, AVCHD .mts): 192-byte source packets, each a
+    # 4-byte TP_extra_header before a TS packet
+    if len(b) > _BDAV_SYNCS[-1] and all(b[i] == 0x47 for i in _BDAV_SYNCS):
         return Container.MPEG_TS
     if b[:4] == b"\x1a\x45\xdf\xa3":  # EBML
         return Container.MKV
@@ -95,7 +105,7 @@ def detect_container_from_extension(ext: str) -> Container:
 def detect_container(fh, extension: str = "") -> Container:
     pos = fh.tell()
     fh.seek(0)
-    head = fh.read(16)
+    head = fh.read(HEAD_BYTES)
     fh.seek(pos)
     c = detect_container_from_bytes(head)
     if c == Container.UNKNOWN and extension:

@@ -9,7 +9,9 @@ Port of minivideo_tpu/profiling.py, grown into a span recorder.
   span a pool task was submitted under, see carry), its item and byte
   counts, and the thread's CPU time inside it (time.thread_time_ns: the
   span's own work, without the time its thread waited for a core or
-  the interpreter lock).  begin() opens a span that is not on the
+  the interpreter lock).  note(items, **info) inside the span sets a
+  count known only once the work is done, and counters of the work
+  (the record's `info`).  begin() opens a span that is not on the
   thread's stack, for work handed to a pool: it ends at the end of the
   last span under it.
 - Tracing is on while a torch.profiler session is open in the process
@@ -63,11 +65,13 @@ _last: list = []                  # records of the last session that ended
 
 
 class Record(namedtuple("Record", "name start_ns end_ns thread thread_name "
-                                  "id parent items nbytes cpu_ns")):
+                                  "id parent items nbytes cpu_ns info",
+                        defaults=(None,))):
     """One span that began and ended inside a profiler session: `thread`
     is the OS thread id (a Chrome trace's "tid"), `parent` 0 for none,
     `cpu_ns` the thread's CPU time inside the span (0 for a begin() span,
-    whose work runs on other threads)."""
+    whose work runs on other threads), `info` the counters of note() (a
+    dict) or None."""
 
     __slots__ = ()
 
@@ -120,6 +124,9 @@ class _Off:
     def end(self):
         pass
 
+    def note(self, items=None, **info):
+        pass
+
 
 _OFF = _Off()
 
@@ -128,11 +135,12 @@ class Span:
     """A span while tracing is on (made by span() or begin())."""
 
     __slots__ = ("name", "items", "nbytes", "up", "id", "t0", "c0", "last",
-                 "session", "prev", "twin", "stacked")
+                 "session", "prev", "twin", "stacked", "info")
 
     def __init__(self, name, items, nbytes, stacked):
         self.name, self.items, self.nbytes = name, items, nbytes
         self.stacked, self.last, self.twin = stacked, 0, None
+        self.info = None
         if not _open:
             _session(True)
         self.session = _open
@@ -155,6 +163,13 @@ class Span:
     def __exit__(self, *exc):
         self.end()
 
+    def note(self, items=None, **info):
+        """Set the item count (where given) and the counters of the
+        record's `info`."""
+        if items is not None:
+            self.items = items
+        self.info = dict(self.info or {}, **info)
+
     def end(self):
         if self.twin is not None:
             self.twin.__exit__(None, None, None)
@@ -173,7 +188,7 @@ class Span:
             tid, tname = _thread()
             records.append(Record(self.name, self.t0, t1, tid, tname,
                                   self.id, up.id if up is not None else 0,
-                                  self.items, self.nbytes, cpu))
+                                  self.items, self.nbytes, cpu, self.info))
         elif not _profiling():
             _session(False)
 
@@ -274,7 +289,7 @@ def _merge_spans(path: str, records, tid: int) -> dict:
                       "dur": (r.end_ns - r.start_ns) / 1e3,
                       "args": {"span": r.id, "parent": r.parent,
                                "items": r.items, "bytes": r.nbytes,
-                               "cpu_us": r.cpu_ns / 1e3}})
+                               "cpu_us": r.cpu_ns / 1e3, **(r.info or {})}})
     added += [{"ph": "M", "name": "thread_name", "pid": pid, "tid": t,
                "args": {"name": n}} for t, n in names.items()]
     events.extend(added)

@@ -540,6 +540,131 @@ def write_ts(annexb: bytes) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# BDAV MPEG-2 transport stream (Blu-ray .m2ts, AVCHD .mts)
+
+BDAV_VIDEO_PID = 0x1011        # BD-ROM's primary video PID
+BDAV_FPS = (24000, 1001)       # 23.976 pictures/s
+BDAV_PMT_PID = 0x0100
+NULL_PACKET = b"\x47\x1f\xff\x10" + b"\xff" * 184
+ALIGNED_UNIT = 32              # source packets of a BDAV aligned unit
+
+
+def access_units(annexb: bytes) -> list:
+    """The Annex-B stream's NAL units grouped into access units, each an
+    Annex-B byte string: a picture starts at a slice with
+    first_mb_in_slice 0 and takes the NAL units before it (parameter
+    sets, SEI); what trails the last slice stays with the last unit."""
+    from ..models.h264.nalu import split_annexb
+    units, pending = [], []
+    for _, nal in split_annexb(annexb):
+        t = nal[0] & 0x1F
+        if 1 <= t <= 5 and (nal[1] & 0x80 or not units):
+            units.append(pending + [nal])
+            pending = []
+        elif 1 <= t <= 5:
+            units[-1].append(nal)
+        else:
+            pending.append(nal)
+    if units:
+        units[-1].extend(pending)
+    return [b"".join(b"\x00\x00\x00\x01" + n for n in u) for u in units]
+
+
+def mpeg_crc32(data: bytes) -> int:
+    """CRC-32/MPEG-2 of a PSI section (ISO 13818-1 annex A)."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b << 24
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x04C11DB7 if crc & 0x80000000
+                   else crc << 1) & 0xFFFFFFFF
+    return crc
+
+
+def _section(table_id: int, ext: int, body: bytes) -> bytes:
+    """A PSI section with its pointer_field, header and CRC."""
+    head = bytes([table_id, 0xB0 | (len(body) + 9) >> 8,
+                  (len(body) + 9) & 0xFF, ext >> 8, ext & 0xFF, 0xC1, 0, 0])
+    sec = head + body
+    return b"\x00" + sec + mpeg_crc32(sec).to_bytes(4, "big")
+
+
+def _ts_packet(pid: int, cc: int, payload: bytes, pusi: bool,
+               pcr: int | None = None) -> bytes:
+    """One 188-byte TS packet: `payload` (at most 184 bytes, 176 with a
+    PCR), the adaptation field stuffing the rest and carrying the PCR
+    (27 MHz) where given."""
+    head = bytes([0x47, (0x40 if pusi else 0) | pid >> 8, pid & 0xFF])
+    if pcr is None and len(payload) == 184:
+        return head + bytes([0x10 | cc]) + payload
+    af_len = 183 - len(payload)
+    af = bytes([af_len])
+    if af_len:
+        opt = b""
+        if pcr is not None:
+            base, ext = pcr // 300, pcr % 300
+            opt = ((base & 0x1FFFFFFFF) << 15 | 0x7E << 9 | ext).to_bytes(
+                6, "big")
+        af += bytes([0x50 if pcr is not None else 0]) + opt \
+            + b"\xff" * (af_len - 1 - len(opt))
+    return head + bytes([0x30 | cc]) + af + payload
+
+
+def write_m2ts(annexb: bytes, ats_start: int = 0x2A0000,
+               mux_rate: int | None = None, null_every: int = 0) -> bytes:
+    """A BDAV MPEG-2 transport stream of the Annex-B stream's access units
+    (Blu-ray Disc Read-Only Format, Part 3): 192-byte source packets, each
+    a 4-byte TP_extra_header (copy_permission_indicator 0, a 30-bit
+    arrival time stamp at 27 MHz) before a TS packet.  PAT and PMT
+    (program 1 on PID 0x0100, an HDMV registration descriptor, PCR on
+    the video PID) go before every access unit, each unit one video PES
+    on PID 0x1011 (stream_type 0x1B) with its PTS at 23.976 pictures/s,
+    the PCR in the adaptation field of its first packet; a null packet
+    follows every `null_every` packets where that is not 0, and null
+    packets pad the file to whole aligned units of 32 source packets.
+    Arrival time stamps rise by one step a packet from `ats_start`: 192
+    bytes at `mux_rate` bits/s, or (None) the stream's own rate, its
+    packets spread over its duration."""
+    aus = access_units(annexb)
+    cc: dict = {}
+    packets = []                     # (pid, cc, payload, pusi, pcr) or None
+
+    def put(pid, payload, pusi, pcr=False):
+        c = cc.get(pid, 0)
+        cc[pid] = (c + 1) & 0xF
+        packets.append((pid, c, payload, pusi, pcr))
+        if null_every and len(packets) % (null_every + 1) == null_every:
+            packets.append(None)
+
+    pat = _section(0x00, 0x0001, bytes([0x00, 0x01, 0xE0 | BDAV_PMT_PID >> 8,
+                                        BDAV_PMT_PID & 0xFF]))
+    pmt = _section(0x02, 0x0001, bytes(
+        [0xE0 | BDAV_VIDEO_PID >> 8, BDAV_VIDEO_PID & 0xFF, 0xF0, 6])
+        + b"\x05\x04HDMV" + bytes(
+        [0x1B, 0xE0 | BDAV_VIDEO_PID >> 8, BDAV_VIDEO_PID & 0xFF, 0xF0, 0]))
+    for k, au in enumerate(aus):
+        put(0x0000, pat + b"\xff" * (184 - len(pat)), True)
+        put(BDAV_PMT_PID, pmt + b"\xff" * (184 - len(pmt)), True)
+        pts = 90000 + k * 90000 * BDAV_FPS[1] // BDAV_FPS[0]
+        pes = b"\x00\x00\x01\xe0\x00\x00\x80\x80\x05" + _encode_pts(pts) \
+            + au
+        put(BDAV_VIDEO_PID, pes[:176], True, True)
+        for off in range(176, len(pes), 184):
+            put(BDAV_VIDEO_PID, pes[off:off + 184], False)
+    packets += [None] * (-len(packets) % ALIGNED_UNIT)
+    n = len(packets)
+    step = (192 * 8 * 27_000_000 // mux_rate if mux_rate
+            else len(aus) * 27_000_000 * BDAV_FPS[1] // BDAV_FPS[0] // n)
+    out = bytearray()
+    for i, p in enumerate(packets):
+        ats = ats_start + i * step
+        out += (ats & 0x3FFFFFFF).to_bytes(4, "big")
+        out += NULL_PACKET if p is None else _ts_packet(
+            *p[:4], pcr=ats if p[4] else None)
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
 # MP3 (layer III CBR, silent frames)
 
 

@@ -188,6 +188,9 @@ def exercise_demux(rounds):
             rng.integers(-3000, 3000, 4000).astype(np.int16)),
         "mkv": lambda: C.write_mkv(es, 64, 48),
         "ts": lambda: C.write_ts(es),
+        # BDAV: 192-byte source packets, 0x47 in their headers, nulls
+        "m2ts": lambda: C.write_m2ts(es, mux_rate=96_000_000,
+                                     ats_start=0x470000, null_every=5),
         "mpg": lambda: C.write_ps(es),
         # access units split over PES packets: 65,535-byte packets, and
         # 2,048-byte packets that ignore picture boundaries
